@@ -2,37 +2,65 @@
 """On-card smoke run of motcpp_tpu_torch: builds the CUDA kernels from
 the sources in this checkout, holds each against its plain PyTorch
 version, drives the ByteTrack multi-stream path at the bench's flagship
-shape and checks what it emits.
+shape and the live-ReID BoT-SORT path at the bench's live-ReID shape,
+and checks what they emit.
 
     python3 chip_smoke.py
 
-Needs one CUDA device (written for an H100, sm_90a) and nvcc. Phases:
+Needs one CUDA device (written for an H100, sm_90a) and nvcc. The main
+paths run and are timed with PyTorch's defaults (cuDNN may use TF32 for
+float32 convolutions, matrix products do not); TF32 is off only around
+the float32 checks of phases 6 and 8 and the plain versions' timings,
+so those compare float32 arithmetic. Phases:
 
-  1. build the auction kernel; print the card's name and power limit;
-  2. the kernel against the plain auction at (K, N) = (64, 32),
+  1. build the auction kernel (and, in parallel, the OSBlock kernel);
+     print the card's name and power limit;
+  2. the auction kernel against the plain auction at (K, N) = (64, 32),
      (128, 64), (128, 128) and (256, 128): identical row2col/col2row;
-  3. the main path: MultiStreamRunner over ByteTrack with the kernel
-     (lap_impl="auction_pallas"), S=4096 streams, K=64 slots, N=32 dets,
-     16 objects, T=60 frames; one warm-up and 5 timed run()s, each
-     launching the kernel exactly 2*T times; then the kernel timed on
-     the inputs the main path gave it, beside its plain version (the
-     kernels line gives both launches of one frame summed), and a
-     torch.profiler trace of 10 frames;
+  3. the ByteTrack main path: MultiStreamRunner over ByteTrack with the
+     kernel (lap_impl="auction_pallas"), S=4096 streams, K=64 slots,
+     N=32 dets, 16 objects, T=60 frames; one warm-up and 5 timed
+     run()s, each launching the kernel exactly 2*T times; then the
+     kernel timed on the inputs the main path gave it, beside its plain
+     version, and a torch.profiler trace of 10 frames;
   4. the same rollout on 256 streams through the kernel and through the
-     plain auction: identical masks, ids and boxes.
+     plain auction: identical masks, ids and boxes;
+  5. the OSBlock kernel's build time and its registers and spills;
+  6. the OSBlock kernel against its plain version at the six osnet_x1_0
+     block shapes (64 crops of 256x128, seeded inputs and weights):
+     float32 max |kernel - plain| / max |plain| <= 1e-4; bfloat16
+     per-crop cosine >= 0.999 against the plain version in bfloat16 and
+     >= 0.995 against float32;
+  7. the live-ReID main path: MultiStreamRunner over BoT-SORT
+     (with_reid, emb_dim=512, the auction kernel) with
+     make_embed_fn(osnet_x1_0, bfloat16, fused=True) as embed_fn, S=128
+     streams, N=16 crops of 256x128 uint8 made on the card, K=64, 14
+     objects, T=4; every frame, then BoT-SORT's deployed cadence 8; one
+     warm-up and 5 timed run()s each, with the kernels' launch counts
+     checked; then the OSBlock kernel on the inputs the main path gave
+     each block, and a torch.profiler trace of one frame;
+  8. kernel path against plain path: fused and plain folded embeddings
+     of the same crops in float32 (per-crop cosine >= 0.9999); BoT-SORT
+     with the auction kernel and with the plain auction on the same
+     embeddings (identical masks, ids, boxes); and, reported, the share
+     of identical emissions of the live path with kernel and with plain
+     embeddings.
 
 Any failed check exits nonzero before the result is printed. The last
-line is ``{"ok": true, "device": {...}}``; the line before it lists the
-kernels with their times and bounds.
+line is ``{"ok": true, "device": {...}}``; the line before it is the
+card's name and power limit, and the one before that lists the kernels
+with their times and bounds.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 # the run and its result line describe one card: unless the caller chose
 # the visible devices, use the first
@@ -41,15 +69,24 @@ os.environ.setdefault("CUDA_VISIBLE_DEVICES", "0")
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-# H100 SXM (NVIDIA data sheet): HBM rate and float32 rate outside the
-# tensor cores, at the 700 W power limit
+# H100 SXM (NVIDIA data sheet): HBM rate, float32 rate outside the
+# tensor cores and dense bf16 tensor-core rate, at the 700 W power limit
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 
 S, K, N, N_OBJ, T, REPEATS = 4096, 64, 32, 16, 60, 5
 CHECK_SHAPES = [(64, 32, 4096), (128, 64, 1024), (128, 128, 1024),
                 (256, 128, 256)]
 EQUAL_STREAMS = 256
+
+# live ReID: bench.py::bench_livereid's shape (S, N, K, D, objects,
+# crop, T) and BoT-SORT's deployed embedding cadence (bench.py DEPLOYED)
+LIVE_S, LIVE_N, LIVE_K, LIVE_D, LIVE_OBJ, LIVE_T = 128, 16, 64, 512, 14, 4
+CROP_HW = (256, 128)
+CADENCE = 8
+BLOCK_CHECK_B = 64
+EQUAL_T = 12  # frames of the kernel-path-vs-plain-path BoT-SORT runs
 
 
 class SmokeFailure(Exception):
@@ -59,6 +96,21 @@ class SmokeFailure(Exception):
 def check(ok, msg):
     if not ok:
         raise SmokeFailure(msg)
+
+
+@contextlib.contextmanager
+def exact_float32():
+    """TF32 off for float32 matrix products and convolutions inside the
+    block, PyTorch's settings restored after it."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
 
 
 def cuda_ms(fn, reps):
@@ -161,10 +213,17 @@ def run_smoke():
     from motcpp_tpu_torch.ops import auction, auction_cuda
     from motcpp_tpu_torch.parallel.streams import MultiStreamRunner
 
-    # ---- 1. build --------------------------------------------------------
-    t0 = time.perf_counter()
-    lib = auction_cuda.build()
-    build_s = time.perf_counter() - t0
+    # ---- 1. build (both kernels, one nvcc each, started together) ------
+    from motcpp_tpu_torch.appearance import osblock_cuda
+
+    def timed(build):
+        t0 = time.perf_counter()
+        return build(), time.perf_counter() - t0
+
+    with ThreadPoolExecutor(2) as pool:
+        builds = [pool.submit(timed, b)
+                  for b in (auction_cuda.build, osblock_cuda.build)]
+        (lib, build_s), osblock_build = (f.result() for f in builds)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -293,7 +352,330 @@ def run_smoke():
         "bound_by": "bytes" if bound_by == {"bytes"} else "operations",
         "library_ms": None,
     }]
+    kernels.append(live_reid_phases(osblock_build))
     return kernels, smi
+
+
+def osblock_bound_ms(w, B, H, W, dtype):
+    """Least time for one block over B crops: its input read once and its
+    output written once (weights too) at the HBM rate, or its
+    multiply-adds at the peak rate of the type (bf16 tensor cores, or
+    float32 CUDA cores), whichever is longer."""
+    elem = 2 if dtype == torch.bfloat16 else 4
+    nbytes = (B * H * W * (w.cin + w.cout) * elem
+              + w.mats.numel() * elem + w.biases.numel() * 4)
+    macs_px = (w.cin * w.mid + 10 * (w.mid * w.mid + 9 * w.mid)
+               + 4 * w.mid + w.mid * w.cout
+               + (w.cin * w.cout if w.has_ds else 0))
+    ops = 2 * B * (H * W * macs_px + 4 * 2 * w.mid * w.hidden)
+    peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / peak * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def crop_cosine(a, b):
+    """Per-crop cosine of two (B, ...) tensors, in float32."""
+    a, b = a.float().reshape(a.shape[0], -1), b.float().reshape(b.shape[0], -1)
+    return (a * b).sum(1) / (a.norm(dim=1) * b.norm(dim=1)).clamp_min(1e-30)
+
+
+def x1_block_inputs(gen):
+    """Seeded NHWC inputs of the six osnet_x1_0 blocks at 256x128 crops
+    (post-ReLU activations, as the blocks see)."""
+    shapes = {"conv2_0": (64, 32, 64), "conv2_1": (64, 32, 256),
+              "conv3_0": (32, 16, 256), "conv3_1": (32, 16, 384),
+              "conv4_0": (16, 8, 384), "conv4_1": (16, 8, 512)}
+    return {name: torch.relu(torch.randn((BLOCK_CHECK_B, *hw), generator=gen,
+                                         device="cuda"))
+            for name, hw in shapes.items()}
+
+
+def timed_runs(runner, dets, masks, crops, counters, want):
+    """One warm-up and REPEATS timed run()s from a reset state; checks
+    each run's kernel launches against ``want`` ({module: count})."""
+    times = []
+    for rep in range(1 + REPEATS):
+        runner.reset()
+        before = {m: m.LAUNCHES for m in counters}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs, out_masks = runner.run(dets, masks, embs=crops)
+        torch.cuda.synchronize()
+        if rep:
+            times.append(time.perf_counter() - t0)
+        for m in counters:
+            got = m.LAUNCHES - before[m]
+            check(got == want[m], f"run {rep}: {got} {m.__name__} launches, "
+                  f"want {want[m]}")
+    return float(np.median(times)), times, outs, out_masks
+
+
+def profile_live_frame(runner, dets, masks, crops):
+    """torch.profiler over one frame of the live path after two: kernel
+    time of the OSBlock kernel, the rest of the device span of the
+    "osnet" range that chip_smoke's embed wrapper opens (the rest of
+    OSNet), and the kernel time outside it (the tracker)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    runner.reset()
+    runner.run(dets[:2], masks[:2], embs=crops[:2])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        runner.run(dets[2:3], masks[2:3], embs=crops[2:3])
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = prof.key_averages()
+    cuda = [e for e in events if e.device_type == DeviceType.CUDA]
+    # the "osnet" range also appears on the device timeline, as the span
+    # from its first kernel's start to its last kernel's end
+    osnet_us = sum(e.self_device_time_total for e in cuda if e.key == "osnet")
+    launched = [e for e in cuda if e.key != "osnet"]
+    device_us = sum(e.self_device_time_total for e in launched)
+    if not device_us:
+        return "profiler recorded no device time: shares not measured"
+    block_us = sum(e.self_device_time_total for e in launched
+                   if "osblock" in e.key)
+    if not osnet_us:
+        split = "no device span of the osnet range: split not measured"
+    else:
+        split = (f"rest of OSNet's device span {(osnet_us - block_us) / 1e3:.3f}"
+                 f" ms ({100 * (osnet_us - block_us) / device_us:.1f}%), "
+                 f"tracker and the rest {(device_us - osnet_us) / 1e3:.3f} ms "
+                 f"({100 * (device_us - osnet_us) / device_us:.1f}%)")
+    return (f"1 frame: wall {wall_us / 1e3:.3f} ms under the profiler, "
+            f"kernels {device_us / 1e3:.3f} ms "
+            f"({100 * device_us / wall_us:.1f}% of wall); OSBlock kernel "
+            f"{block_us / 1e3:.3f} ms ({100 * block_us / device_us:.1f}%), "
+            f"{split}; {sum(e.count for e in launched)} kernels")
+
+
+def live_reid_phases(osblock_build):
+    from motcpp_tpu_torch.appearance import osblock, osblock_cuda
+    from motcpp_tpu_torch.appearance.osnet import init_params, osnet_x1_0
+    from motcpp_tpu_torch.appearance.quant import fold_osnet
+    from motcpp_tpu_torch.appearance.reid import make_embed_fn
+    from motcpp_tpu_torch.data import synth_stream_dets
+    from motcpp_tpu_torch.models.botsort import BotSortConfig, make_botsort
+    from motcpp_tpu_torch.ops import auction_cuda
+    from motcpp_tpu_torch.parallel.streams import MultiStreamRunner
+
+    # ---- 5. build ---------------------------------------------------------
+    path, build_s = osblock_build
+    ptxas = [ln.strip() for ln in path.with_suffix(".log").read_text()
+             .splitlines() if "registers" in ln or "spill" in ln]
+    print(f"phase 5 build: {path.name} in {build_s:.2f} s; ptxas: "
+          + " | ".join(ptxas))
+
+    # ---- 6. kernel against its plain version at the x1_0 shapes ----------
+    model = init_params(osnet_x1_0(feature_dim=LIVE_D), seed=0)
+    folded = fold_osnet(model)
+    with exact_float32():
+        trees = {dt: {n: {k: v.to("cuda", dt) for k, v in leaf.items()}
+                      for n, leaf in folded.items()}
+                 for dt in (torch.float32, torch.bfloat16)}
+        packs = {dt: osblock.pack_blocks(tree, dt)
+                 for dt, tree in trees.items()}
+        inputs = x1_block_inputs(torch.Generator(device="cuda").manual_seed(0))
+        for name, x in inputs.items():
+            w32, w16 = packs[torch.float32][name], packs[torch.bfloat16][name]
+            got32 = osblock.osblock_fused(w32, x)
+            ref32 = osblock.osblock_reference(trees[torch.float32], name, x,
+                                              w32.cout)
+            rel = float((got32 - ref32).abs().max() / ref32.abs().max())
+            check(rel <= 1e-4, f"{name} float32: kernel vs plain relative "
+                  f"error {rel:.2e} > 1e-4")
+            xb = x.bfloat16()
+            got16 = osblock.osblock_fused(w16, xb)
+            ref16 = osblock.osblock_reference(trees[torch.bfloat16], name, xb,
+                                              w16.cout)
+            cos16 = float(crop_cosine(got16, ref16).min())
+            cos32 = float(crop_cosine(got16, ref32).min())
+            check(cos16 >= 0.999, f"{name} bf16: cosine {cos16:.5f} < 0.999 "
+                  f"against the plain version in bf16")
+            check(cos32 >= 0.995, f"{name} bf16: cosine {cos32:.5f} < 0.995 "
+                  f"against float32")
+            _, H, W, _ = x.shape
+            line = [f"phase 6 {name} B={BLOCK_CHECK_B} {H}x{W} "
+                    f"{w32.cin}->{w32.cout}: f32 rel err {rel:.2e}, bf16 min "
+                    f"cosine {cos16:.6f} (plain bf16) {cos32:.6f} (f32)"]
+            for dt, w, xx in ((torch.float32, w32, x),
+                              (torch.bfloat16, w16, xb)):
+                k_ms = cuda_ms(lambda: osblock.osblock_fused(w, xx), 3)
+                p_ms = cuda_ms(lambda: osblock.osblock_reference(
+                    trees[dt], name, xx, w.cout), 1)
+                b_ms, by = osblock_bound_ms(w, BLOCK_CHECK_B, H, W, dt)
+                line.append(f"{str(dt)[6:]} kernel {k_ms:.3f} ms plain "
+                            f"{p_ms:.3f} ms bound {b_ms:.4f} ms ({by})")
+            print("; ".join(line))
+    del trees, packs, inputs
+
+    # ---- 7. the live-ReID main path ---------------------------------------
+    from torch.profiler import record_function
+
+    embed = make_embed_fn(model, compute_dtype="bfloat16", fused=True,
+                          device="cuda")
+    last = []
+
+    def embed_fn(crops):
+        with record_function("osnet"):
+            e = embed(crops)
+        last[:] = [e]
+        return e
+
+    cfg = BotSortConfig(with_reid=True, emb_dim=LIVE_D, max_tracks=LIVE_K,
+                        max_dets=LIVE_N, lap_impl="auction_pallas")
+    init, step = make_botsort(cfg, device="cuda")
+    dets_np, masks_np = synth_stream_dets(np.random.default_rng(0), EQUAL_T,
+                                          LIVE_S, LIVE_N, n_obj=LIVE_OBJ)
+    dets_all = torch.from_numpy(dets_np).cuda()
+    masks_all = torch.from_numpy(masks_np).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    crops0 = torch.randint(0, 256, (LIVE_S, LIVE_N, *CROP_HW, 3),
+                           dtype=torch.uint8, device="cuda", generator=gen)
+    # frames differ by a roll along the stream axis, as bench_livereid
+    crops_all = torch.stack([torch.roll(crops0, t, 0) for t in range(EQUAL_T)])
+    dets, masks, crops = (dets_all[:LIVE_T], masks_all[:LIVE_T],
+                          crops_all[:LIVE_T])
+    counters = (osblock_cuda, auction_cuda)
+    want = {osblock_cuda: 6 * LIVE_T, auction_cuda: 2 * LIVE_T}
+    for label, cadence in (("every frame", None), ("cadence 8", CADENCE)):
+        runner = MultiStreamRunner(init, step, LIVE_S, device="cuda",
+                                   embed_fn=embed_fn, emb_cadence=cadence)
+        if cadence is None:
+            osblock_cuda.LAUNCHES = 0
+            auction_cuda.LAUNCHES = 0
+        run_s, times, outs, out_masks = timed_runs(runner, dets, masks, crops,
+                                                   counters, want)
+        if cadence is None:
+            launches = osblock_cuda.LAUNCHES
+        e = last[0]
+        norms = e.norm(dim=1)
+        check(bool(torch.isfinite(e).all()), f"{label}: non-finite embeddings")
+        nonzero = norms > 0
+        check(bool(((norms[nonzero] - 1).abs() < 1e-3).all())
+              and int(nonzero.sum()) > 0, f"{label}: embeddings not unit norm")
+        emitted = int(out_masks.sum())
+        check(emitted > 0, f"{label}: no tracks emitted")
+        check(bool(torch.isfinite(outs[out_masks]).all()),
+              f"{label}: non-finite emitted boxes")
+        per_frame = (LIVE_S * LIVE_N if cadence is None
+                     else -(-LIVE_S // cadence) * LIVE_N)
+        fps = LIVE_S * LIVE_T / run_s
+        print(f"phase 7 live ReID {label}: S={LIVE_S} N={LIVE_N} K={LIVE_K} "
+              f"D={LIVE_D} osnet_x1_0 bf16 {CROP_HW[0]}x{CROP_HW[1]} T={LIVE_T}"
+              f": {run_s * 1e3 / LIVE_T:.3f} ms per frame-batch (median of "
+              f"{REPEATS}, runs {[round(t * 1e3, 1) for t in times]} ms), "
+              f"{fps / 30:.2f} streams at 30 FPS, "
+              f"{per_frame * LIVE_T / run_s:.0f} crops/s ({per_frame} per "
+              f"frame), {emitted} emissions in the last run")
+
+    # the kernel on the inputs the main path gives each block (frame 2)
+    runner = MultiStreamRunner(init, step, LIVE_S, device="cuda",
+                               embed_fn=embed)
+    runner.run(dets[:2], masks[:2], embs=crops[:2])
+    captured = []
+    launch = osblock_cuda.osblock
+
+    def recording(w, x):
+        captured.append((w, x.clone()))
+        return launch(w, x)
+
+    osblock_cuda.osblock = recording
+    try:
+        runner.run(dets[2:3], masks[2:3], embs=crops[2:3])
+    finally:
+        osblock_cuda.osblock = launch
+    check(len(captured) == 6, f"captured {len(captured)} blocks, want 6")
+    with exact_float32():
+        k_ms = p_ms = b_ms = 0.0
+        bound_by, max_err = set(), 0.0
+        for w, x in captured:
+            got = launch(w, x)
+            ref = osblock.osblock_reference(w.folded, w.name, x, w.cout)
+            err = float((got.float() - ref.float()).abs().max())
+            cos = float(crop_cosine(got, ref).min())
+            check(cos >= 0.999,
+                  f"main path {w.name}: cosine {cos:.5f} < 0.999")
+            max_err = max(max_err, err)
+            ks = cuda_ms(lambda: launch(w, x), 3)
+            ps = cuda_ms(lambda: osblock.osblock_reference(w.folded, w.name, x,
+                                                           w.cout), 1)
+            bs, by = osblock_bound_ms(w, *x.shape[:3], x.dtype)
+            k_ms, p_ms, b_ms = k_ms + ks, p_ms + ps, b_ms + bs
+            bound_by.add(by)
+            print(f"phase 7 kernel on the main path's {w.name} "
+                  f"{tuple(x.shape)} {str(x.dtype)[6:]}: kernel {ks:.3f} ms, "
+                  f"plain {ps:.3f} ms, bound {bs:.4f} ms ({by}), max abs err "
+                  f"{err:.4g}, min cosine {cos:.6f}")
+        print(f"phase 7 OSBlock kernel per frame (six blocks): {k_ms:.3f} ms, "
+              f"plain {p_ms:.3f} ms, bound {b_ms:.4f} ms")
+    del captured
+    runner = MultiStreamRunner(init, step, LIVE_S, device="cuda",
+                               embed_fn=embed_fn)
+    print(f"phase 7 profile: {profile_live_frame(runner, dets, masks, crops)}")
+
+    # ---- 8. kernel path against the plain path ----------------------------
+    with exact_float32():
+        flat = crops0[:CADENCE * 2].reshape(-1, *CROP_HW, 3)
+        e_kernel = make_embed_fn(model, fused=True, device="cuda")(flat)
+        e_plain = make_embed_fn(model, folded=True, device="cuda")(flat)
+        cos = float((e_kernel * e_plain).sum(1).min())
+        check(cos >= 0.9999, f"float32 fused vs folded embeddings: min cosine "
+              f"{cos:.6f} < 0.9999")
+        print(f"phase 8 float32 embeddings of {flat.shape[0]} crops, fused "
+              f"(kernel) vs folded (plain): min cosine {cos:.7f}")
+
+    embs = torch.stack([embed(c.reshape(-1, *CROP_HW, 3)).reshape(
+        LIVE_S, LIVE_N, -1) for c in crops_all])
+    emitted = {}
+    for lap in ("auction_pallas", "auction"):
+        i_fn, s_fn = make_botsort(BotSortConfig(
+            with_reid=True, emb_dim=LIVE_D, max_tracks=LIVE_K,
+            max_dets=LIVE_N, lap_impl=lap), device="cuda")
+        emitted[lap] = MultiStreamRunner(
+            i_fn, s_fn, LIVE_S, device="cuda", with_embs=True).run(
+                dets_all, masks_all, embs=embs)
+    (ko, km), (po, pm) = emitted["auction_pallas"], emitted["auction"]
+    check(torch.equal(km, pm), "BoT-SORT: kernel and plain auction emit "
+          "different masks")
+    check(torch.equal(ko[km], po[pm]), "BoT-SORT: kernel and plain auction "
+          "emit different ids or boxes")
+    print(f"phase 8 BoT-SORT auction kernel = plain auction on {LIVE_S} "
+          f"streams x {EQUAL_T} frames of the same embeddings: identical "
+          f"({int(km.sum())} emissions)")
+
+    plain_embed = make_embed_fn(model, compute_dtype="bfloat16", folded=True,
+                                device="cuda")
+    paths = {}
+    for label, fn in (("kernel", embed), ("plain", plain_embed)):
+        paths[label] = MultiStreamRunner(init, step, LIVE_S, device="cuda",
+                                         embed_fn=fn).run(
+                                             dets_all, masks_all, embs=crops_all)
+    (ko, km), (po, pm) = paths["kernel"], paths["plain"]
+    same = km & pm & (ko[..., 4] == po[..., 4]) & (
+        (ko[..., :4] - po[..., :4]).abs().amax(-1) <= 1e-3)
+    share = int(same.sum()) / max(int(km.sum()), int(pm.sum()), 1)
+    print(f"phase 8 live path, kernel vs plain (folded) bf16 embeddings, "
+          f"{LIVE_S} streams x {EQUAL_T} frames: {int(km.sum())} vs "
+          f"{int(pm.sum())} emissions, {100 * share:.2f}% identical")
+
+    return {
+        "name": "osblock",
+        "route": "cuda",
+        "source": "motcpp_tpu_torch/csrc/osblock.cu",
+        "replaces": "motcpp_tpu/appearance/osblock_pallas.py:95",
+        "launches": launches,
+        "max_abs_err": max_err,
+        "ms": k_ms,
+        "plain_ms": p_ms,
+        "bound_ms": b_ms,
+        "bound_by": "bytes" if bound_by == {"bytes"} else "operations",
+        "library_ms": None,
+    }
 
 
 def main():

@@ -5,10 +5,15 @@ Usage (mirrors ``motcpp_tpu/cli.py`` and the reference's
 tools/motcpp_eval.cpp:19-38):
 
     python -m motcpp_tpu_torch.cli <mot_root> <output_dir> [tracker]
-                                   [det_emb_root] [model] [--cpu] ...
+                                   [det_emb_root] [model] [reid]
+                                   [reid_weights] [--cpu] ...
 
 Runs on the CUDA device unless ``--cpu`` is given. Per sequence: load
-detections, run the tracker frame by frame, append MOT-Challenge rows.
+detections (and pre-generated embeddings, when present), run the tracker
+frame by frame, append MOT-Challenge rows. ``reid_weights`` turns on live
+ReID from the frames for the appearance trackers when no embeddings are
+given; ``--images`` loads the real frames (default: the reference eval's
+dummy 1080p frame).
 Replicates the reference's ablation-split handling
 (tools/motcpp_eval.cpp:336-375): when detection frames extend past 1.5x
 the GT range, only frames after ``max_det - max_gt`` are processed and
@@ -30,29 +35,43 @@ from motcpp_tpu_torch.data import (
     read_gt_max_frame,
     write_mot_results,
 )
+from motcpp_tpu_torch.data.mot17 import imread
+
+#: ported trackers that take ReID weights
+REID_TRACKERS = ("botsort",)
 
 
-def build_tracker(name: str, fps: int = 30, device="cuda", **overrides):
+def build_tracker(name: str, fps: int = 30, reid_weights: str = "",
+                  device="cuda", **overrides):
     """Construct a tracker with the eval tool's defaults (reference:
     tools/motcpp_eval.cpp:96-316); capacities and the assignment solver
-    can be overridden."""
+    can be overridden. reid_weights (the reference's 7th CLI argument,
+    motcpp_eval.cpp:38,168-282) turns on live ReID for the appearance
+    trackers when no pre-generated embeddings are given."""
     import motcpp_tpu_torch
 
+    name = name.lower()
     defaults: dict = {}
-    if name.lower() == "bytetrack":
+    if name == "bytetrack":
         defaults = dict(frame_rate=fps)
+    if reid_weights and name in REID_TRACKERS:
+        defaults.update(reid_weights=reid_weights, with_reid=True)
     defaults.update(overrides)
     return motcpp_tpu_torch.create_tracker(name, device=device, **defaults)
 
 
 def run_sequence(tracker, seq_info, detections: dict, output_file: Path,
+                 embeddings: dict | None = None, use_images: bool = False,
                  no_ablation: bool = False, limit_frames: int = 0) -> int:
     """Track one sequence, appending MOT rows; returns frames processed.
 
-    no_ablation: process every detection frame from frame 1 instead of
-    the reference's ablation window. limit_frames: if > 0, stop after
-    this many frames.
+    embeddings: frame -> (n, E) pre-generated embeddings (used where the
+    row count matches the frame's detections). use_images: load the real
+    frame where there is one. no_ablation: process every detection frame
+    from frame 1 instead of the reference's ablation window.
+    limit_frames: if > 0, stop after this many frames.
     """
+    embeddings = embeddings or {}
     if output_file.exists():
         output_file.unlink()
 
@@ -72,9 +91,20 @@ def run_sequence(tracker, seq_info, detections: dict, output_file: Path,
         frames = frames[:limit_frames]
 
     # the reference eval's dummy 1080p frame when images are not loaded
+    # (tools/motcpp_eval.cpp:380-447)
     dummy = np.zeros((1080, 1920, 3), np.uint8)
     for frame_id in frames:
-        tracks = tracker.update(detections[frame_id], dummy)
+        dets = detections[frame_id]
+        embs = embeddings.get(frame_id)
+        if embs is not None and embs.shape[0] != dets.shape[0]:
+            embs = None
+        img = dummy
+        if use_images and frame_id in seq_info.frame_ids:
+            loaded = imread(
+                seq_info.frame_paths[seq_info.frame_ids.index(frame_id)])
+            if loaded is not None:
+                img = loaded
+        tracks = tracker.update(dets, img, embs)
         if tracks.shape[0] > 0:
             write_mot_results(
                 output_file,
@@ -94,6 +124,14 @@ def main(argv=None):
     ap.add_argument("tracker", nargs="?", default="bytetrack")
     ap.add_argument("det_emb_root", nargs="?", default="")
     ap.add_argument("model", nargs="?", default="")
+    ap.add_argument("reid", nargs="?", default="",
+                    help="embedding model folder under det_emb_root/embs")
+    ap.add_argument(
+        "reid_weights", nargs="?", default="",
+        help="ReID checkpoint (.pt/.pth/.npz) for live embeddings from the "
+        "frames (the reference eval's 7th argument); pre-generated "
+        "embedding files still take precedence when present",
+    )
     ap.add_argument("--max-dets", type=int, default=128)
     ap.add_argument("--max-tracks", type=int, default=256)
     ap.add_argument("--lap", default="jv",
@@ -101,6 +139,11 @@ def main(argv=None):
                     help="assignment solver (auction_pallas = the CUDA "
                     "auction kernel on the card, its plain version on "
                     "the CPU)")
+    ap.add_argument(
+        "--images", action="store_true",
+        help="load real frames (default: dummy 1080p images, like the "
+        "reference eval when frames are missing)",
+    )
     ap.add_argument(
         "--no-ablation", action="store_true",
         help="process every detection frame from frame 1 instead of the "
@@ -115,7 +158,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
     device = "cpu" if args.cpu else "cuda"
 
-    dataset = MOT17Dataset(args.mot_root, args.det_emb_root, args.model)
+    dataset = MOT17Dataset(args.mot_root, args.det_emb_root, args.model,
+                           args.reid)
     out_dir = Path(args.output_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
 
@@ -123,16 +167,20 @@ def main(argv=None):
         print(f"Processing {seq.name} ({seq.fps} fps)")
         t0 = time.time()
         detections = dataset.load_detections(seq.det_path)
+        embeddings = dataset.load_embeddings(dataset.emb_path_for(seq.name),
+                                             detections)
         tracker = build_tracker(
             args.tracker,
             fps=seq.fps,
+            reid_weights=args.reid_weights,
             device=device,
             max_dets=args.max_dets,
             max_tracks=args.max_tracks,
             lap_impl=args.lap,
         )
         out_file = out_dir / f"{seq.name}.txt"
-        n = run_sequence(tracker, seq, detections, out_file,
+        n = run_sequence(tracker, seq, detections, out_file, embeddings,
+                         use_images=args.images,
                          no_ablation=args.no_ablation,
                          limit_frames=args.limit_frames)
         print(f"  {n} frames in {time.time() - t0:.1f}s -> {out_file}")

@@ -1,8 +1,8 @@
 """MOT17 dataset indexing and detection loading.
 
-A copy of the parts of ``motcpp_tpu/data/mot17.py`` that the ByteTrack
-CLI needs (the port imports nothing of the JAX package), with NumPy
-parsing only. Host-side equivalent of the reference loader (reference:
+A copy of the parts of ``motcpp_tpu/data/mot17.py`` that the port's CLI
+needs (the port imports nothing of the JAX package), with NumPy parsing
+only. Host-side equivalent of the reference loader (reference:
 src/data/mot17_dataset.cpp:12-345): indexes ``<root>/<seq>/{img1, det/
 det.txt, gt/gt.txt, seqinfo.ini}``, reads fps from seqinfo, loads
 detections in both supported formats (autodetected per file):
@@ -40,19 +40,25 @@ class MOT17Dataset:
 
     Args mirror the reference ctor (mot17_dataset.cpp:12-30):
         mot_root: dataset split dir (e.g. .../MOT17-mini/train)
-        det_emb_root: optional pre-generated detection root
+        det_emb_root: optional pre-generated det/emb root
         model_name: detector folder under det_emb_root (e.g. yolox_x)
+        reid_name: embedding model folder (used by emb_path_for)
     """
 
-    def __init__(self, mot_root, det_emb_root: str = "", model_name: str = ""):
+    def __init__(self, mot_root, det_emb_root: str = "", model_name: str = "",
+                 reid_name: str = ""):
         self.mot_root = Path(mot_root)
+        self.reid_name = reid_name
         self.det_path = None
+        self.emb_root = None
         if det_emb_root and model_name:
             base = Path(det_emb_root)
             if (base / "dets").exists():
                 self.det_path = base / "dets"
+                self.emb_root = base / "embs"
             else:
                 self.det_path = base / model_name / "dets"
+                self.emb_root = base / model_name / "embs"
         self.sequences: list[SequenceInfo] = []
         self._index_sequences()
 
@@ -99,6 +105,26 @@ class MOT17Dataset:
                 return candidate
         return self.det_path / f"{seq_name}.txt"
 
+    def emb_path_for(self, seq_name: str) -> Path | None:
+        """Embedding file path for a sequence, mirroring the det-name
+        mapping with the reid model folder layout."""
+        if self.emb_root is None:
+            return None
+        parts = seq_name.split("-")
+        names = []
+        if len(parts) >= 2:
+            names.append(f"MOT17-{parts[1]}.txt")
+        names.append(f"{seq_name}.txt")
+        roots = [self.emb_root]
+        if self.reid_name:
+            roots.insert(0, self.emb_root / self.reid_name)
+        for root in roots:
+            for nm in names:
+                p = root / nm
+                if p.exists():
+                    return p
+        return None
+
     @staticmethod
     def _read_seq_fps(seq_dir: Path) -> int:
         ini = seq_dir / "seqinfo.ini"
@@ -131,6 +157,42 @@ class MOT17Dataset:
         }
 
 
+    @staticmethod
+    def load_embeddings(emb_path, detections: dict) -> dict[int, np.ndarray]:
+        """One embedding row per detection, in ascending frame order
+        (mot17_dataset.cpp:243-294)."""
+        emb_path = Path(emb_path) if emb_path else None
+        if emb_path is None or not emb_path.exists():
+            return {}
+        det_frame_map = []
+        for frame_id in sorted(detections):
+            det_frame_map += [frame_id] * detections[frame_id].shape[0]
+        try:
+            embs = np.loadtxt(emb_path, dtype=np.float32, ndmin=2)
+        except ValueError:
+            return {}
+        out: dict[int, list] = {}
+        for idx in range(min(len(det_frame_map), embs.shape[0])):
+            out.setdefault(det_frame_map[idx], []).append(embs[idx])
+        return {f: np.stack(v) for f, v in out.items()}
+
+
+def imread(path):
+    """BGR uint8 image with cv2, else PIL, else None (the caller then
+    uses the reference eval's dummy frame)."""
+    try:
+        import cv2
+
+        return cv2.imread(str(path))
+    except ImportError:
+        pass
+    try:
+        from PIL import Image
+    except ImportError:
+        return None
+    return np.asarray(Image.open(path).convert("RGB"))[:, :, ::-1]
+
+
 def _parse_det_text(det_path: Path):
     """Rows of (frame_id, [x1, y1, x2, y2, conf, cls]); the format is
     detected per file (mot17_dataset.cpp:159-167)."""
@@ -154,7 +216,9 @@ def _parse_det_text(det_path: Path):
                         break
                 if len(vals) < 7:
                     continue
-                x1, y1, w, h, conf = vals[2], vals[3], vals[4], vals[5], vals[6]
+                # float32 values and float32 sums, as the JAX package's
+                # native parser (native/motcpp_io.cpp: strtof) gives them
+                x1, y1, w, h, conf = (np.float32(v) for v in vals[2:7])
                 cls = vals[7] if len(vals) > 7 else 0.0
                 rows.append((int(vals[0]), [x1, y1, x1 + w, y1 + h, conf, cls]))
             else:

@@ -21,7 +21,11 @@ import torch
 
 from motcpp_tpu_torch.device import resolve_device
 from motcpp_tpu_torch.models import register
-from motcpp_tpu_torch.models.base import BaseTrackerWrapper
+from motcpp_tpu_torch.models.base import (
+    BaseTrackerWrapper,
+    birth_slots,
+    gather_rows,
+)
 from motcpp_tpu_torch.ops import boxes
 from motcpp_tpu_torch.ops.iou import iou_batch
 from motcpp_tpu_torch.ops.kalman.gaussian import kf_xyah
@@ -94,31 +98,6 @@ def state_from_numpy(arrays: dict, device="cuda") -> ByteState:
 def state_to_numpy(state: ByteState) -> dict:
     """Inverse of :func:`state_from_numpy`."""
     return {name: t.cpu().numpy() for name, t in state._asdict().items()}
-
-
-def _birth_slots(free, cand, K):
-    """Allocate candidate dets (S, N) to free slots (S, K) in detection
-    order; returns births (S, K), det_idx (S, K) and slot rank (S, K)."""
-    S, N = cand.shape
-    det_rank = torch.cumsum(cand.to(torch.int32), 1, dtype=torch.int32) - 1
-    slot_rank = torch.cumsum(free.to(torch.int32), 1, dtype=torch.int32) - 1
-    n_cand = cand.sum(1, dtype=torch.int32)
-    # scatter det index by rank; ranks >= K (when N > K) and
-    # non-candidates land in the extra slot K, which is dropped
-    pos_by_rank = torch.full((S, K + 1), N, dtype=torch.int32,
-                             device=cand.device)
-    rank_idx = torch.where(cand & (det_rank < K), det_rank, K).long()
-    det_ids = torch.arange(N, dtype=torch.int32, device=cand.device)
-    pos_by_rank.scatter_(1, rank_idx, det_ids.expand(S, N))
-    births = free & (slot_rank < n_cand[:, None])
-    det_idx = torch.where(
-        births, pos_by_rank.gather(1, slot_rank.clamp(0, K - 1).long()), 0)
-    return births, det_idx, slot_rank
-
-
-def _rows(dets, idx):
-    """dets (S, N, D) gathered at idx (S, K) -> (S, K, D)."""
-    return dets.gather(1, idx.long()[..., None].expand(-1, -1, dets.shape[-1]))
 
 
 def make_bytetrack(cfg: ByteTrackConfig, device="cuda"):
@@ -209,7 +188,7 @@ def make_bytetrack(cfg: ByteTrackConfig, device="cuda"):
         m12 = m1 | m2
         m123 = m12 | m3
         j123 = torch.where(m1, r2c1, torch.where(m2, r2c2, r2c3)).clamp(0, N - 1)
-        drow = _rows(dets, j123)
+        drow = gather_rows(dets, j123)
         z = boxes.xyxy2xyah(drow[..., :4])
         base_mean = torch.where(m12[..., None], pmean, mean)
         base_cov = torch.where(m12[..., None, None], pcov, cov)
@@ -230,8 +209,8 @@ def make_bytetrack(cfg: ByteTrackConfig, device="cuda"):
         # ================= births =======================================
         newt = rem_high & (c2r3 < 0) & (det_conf >= cfg.track_thresh)
         free = tstate == FREE
-        births, bdet, slot_rank = _birth_slots(free, newt, K)
-        brows = _rows(dets, bdet)
+        births, bdet, slot_rank = birth_slots(free, newt, K)
+        brows = gather_rows(dets, bdet)
         bmean, bcov = kf_xyah.initiate(boxes.xyxy2xyah(brows[..., :4]))
         mean = torch.where(births[..., None], bmean, mean)
         cov = torch.where(births[..., None, None], bcov, cov)
@@ -324,5 +303,5 @@ class ByteTrack(BaseTrackerWrapper):
     def _init_state(self):
         return self._init(1)
 
-    def _step(self, state, dets, det_mask):
+    def _step(self, state, dets, det_mask, embs, warp):
         return self._core_step(state, dets, det_mask)

@@ -2,9 +2,10 @@
 
 The kernel replaces ``motcpp_tpu/ops/auction_pallas.py::_auction_kernel``;
 its plain version is ``ops/auction.py::solve_lap_auction``. The source
-is built with ``nvcc`` into a shared library at first use, under
-``motcpp_tpu_torch/_build/`` and keyed on a hash of the source and the
-flags, and bound through ctypes. Nothing CUDA-specific happens at import.
+is built with ``nvcc`` into a shared library at first use
+(``cuda_build.build``: under ``motcpp_tpu_torch/_build/``, keyed on a
+hash of the source and the flags) and bound through ctypes. Nothing
+CUDA-specific happens at import.
 
 ``solve`` takes the plain version for tensors on the CPU only. For
 tensors on a CUDA device it launches the kernel or raises.
@@ -13,20 +14,16 @@ tensors on a CUDA device it launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 
 import torch
 
+from motcpp_tpu_torch import cuda_build
 from motcpp_tpu_torch.ops import auction
 
-SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "auction.cu"
-BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-fmad=false", "-std=c++17", "-shared", "-Xcompiler", "-fPIC")
+SOURCE = cuda_build.CSRC / "auction.cu"
+NVCC_FLAGS = (*cuda_build.ARCH_FLAGS, "-O3", "-fmad=false",
+              *cuda_build.SHARED_FLAGS)
 MAX_K = 256
 MAX_N = 128
 
@@ -36,34 +33,10 @@ LAUNCHES = 0
 _lib = None
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = Path(home) / "bin" / "nvcc"
-    if not path.exists():
-        raise RuntimeError("nvcc not found: put it on PATH or set CUDA_HOME")
-    return str(path)
-
-
 def build() -> Path:
     """Compile the kernel if this source and these flags have not been
     built yet; returns the shared library's path."""
-    key = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    out = BUILD_DIR / f"libauction_{key.hexdigest()[:16]}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-        capture_output=True, text=True,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {SOURCE}:\n{proc.stderr}")
-    os.replace(tmp, out)
-    return out
+    return cuda_build.build(SOURCE, NVCC_FLAGS, "auction")
 
 
 def _load():

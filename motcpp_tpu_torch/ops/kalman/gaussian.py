@@ -1,7 +1,7 @@
 """DeepSORT-style Gaussian Kalman filter in XYAH space, batched.
 
-Counterpart of ``motcpp_tpu/ops/kalman/gaussian.py`` (``GaussianKF`` and
-``kf_xyah``). State is [pos(d), vel(d)] with F = [I, I; 0, I] and
+Counterpart of ``motcpp_tpu/ops/kalman/gaussian.py`` (``GaussianKF``,
+``kf_xyah`` and ``kf_xywh``). State is [pos(d), vel(d)] with F = [I, I; 0, I] and
 H = [I, 0]; the covariance is handled through its four (d, d) blocks,
 
     F P F' = [[A+B+C+D, B+D], [C+D, D]],   projected cov = A + R,
@@ -121,3 +121,33 @@ kf_xyah = GaussianKF(
     measurement_std=_xyah_measurement_std,
 )
 """ByteTrack filter (reference: xyah_kf.{hpp,cpp})."""
+
+
+def _xywh_initial_std(h):
+    """reference: xywh_kf.hpp:48-58, all four dims height-scaled."""
+    p = 2 * _WP * h
+    v = 10 * _WV * h
+    return torch.stack([p, p, p, p, v, v, v, v], dim=-1)
+
+
+def _xywh_process_std(h):
+    """reference: xywh_kf.hpp:77-87."""
+    p = _WP * h
+    v = _WV * h
+    return torch.stack([p, p, p, p, v, v, v, v], dim=-1)
+
+
+def _xywh_measurement_std(h):
+    """reference: xywh_kf.hpp:110-116."""
+    p = _WP * h
+    return torch.stack([p, p, p, p], dim=-1)
+
+
+kf_xywh = GaussianKF(
+    ndim=4,
+    initial_std=_xywh_initial_std,
+    process_std=_xywh_process_std,
+    measurement_std=_xywh_measurement_std,
+)
+"""BoT-SORT filter (reference: xywh_kf.hpp:17-180): measurement noise
+from the predicted mean's height, no NSA scaling."""

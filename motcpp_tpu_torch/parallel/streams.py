@@ -1,10 +1,13 @@
 """Multi-stream tracking on one device: all streams per step, a loop
 over frames.
 
-Counterpart of ``motcpp_tpu/parallel/streams.py::make_rollout`` and the
-single-device ``MultiStreamRunner``. The step already takes every
-stream at once (a leading S dimension), so the rollout is a Python loop
-over the T frames, where the JAX package scans.
+Counterpart of ``motcpp_tpu/parallel/streams.py`` (``make_rollout``,
+``make_rollout_embs``, ``make_rollout_general`` and the single-device
+``MultiStreamRunner``). The step already takes every stream at once (a
+leading S dimension), so a rollout is a Python loop over the T frames,
+where the JAX package scans. With an ``embed_fn`` the embedding leg is
+live ReID: the rollout takes raw uint8 crops and runs the CNN over each
+frame's crops before the tracker step.
 """
 
 from __future__ import annotations
@@ -20,16 +23,97 @@ def make_rollout(step_fn: Callable):
     """Build ``rollout(states, dets, masks) -> (states, (outs, out_masks))``
     for a stream-batched step: dets (T, S, N, D) and masks (T, S, N) give
     outs (T, S, K, 8) and out_masks (T, S, K)."""
+    return make_rollout_general(step_fn)
 
-    def rollout(states, dets, masks):
+
+def make_rollout_embs(step_fn: Callable):
+    """Like make_rollout for ReID trackers: the step also takes each
+    frame's embeddings, given as (T, S, N, D)."""
+    return make_rollout_general(step_fn, with_embs=True)
+
+
+def make_rollout_general(step_fn: Callable, with_embs: bool = False,
+                         with_warps: bool = False,
+                         embed_fn: Callable | None = None,
+                         crop_budget: int | None = None,
+                         emb_cadence: int | None = None,
+                         emb_priority: bool = False,
+                         cmc_fn: Callable | None = None):
+    """Rollout with optional embedding (T, S, N, D), camera-warp
+    (T, S, 2, 3) and raw-crop legs:
+
+        rollout(states, dets, masks[, embs or crops][, warps])
+
+    With ``embed_fn`` (appearance/reid.py::make_embed_fn) the embedding
+    leg takes raw uint8 crops (T, S, N, Hc, Wc, 3) and each frame runs
+    the CNN over its crops (appearance/reid.py::embed_valid_crops) before
+    the tracker step. ``crop_budget`` caps the CNN batch per frame at the
+    highest-confidence valid crops.
+
+    ``emb_cadence=k`` > 1: stream s embeds only on frames where
+    ``(frame + s) % k == 0``; between refreshes a detection carries a
+    zero embedding (no appearance for that frame) and the batch shrinks
+    to ceil(S/k)*N crops unless crop_budget caps it lower. The rollout
+    then takes ``frame0`` (the global frame index of its first frame)
+    and ``stream_ids`` (S,) right after states:
+
+        rollout(states, frame0, stream_ids, dets, masks, crops[, warps])
+
+    ``emb_priority`` and ``cmc_fn`` are not ported yet and raise.
+    """
+    if emb_priority:
+        raise NotImplementedError("emb_priority is not ported yet")
+    if cmc_fn is not None:
+        raise NotImplementedError("cmc_fn (live camera motion) is not ported yet")
+    if crop_budget is not None and embed_fn is None:
+        raise ValueError("crop_budget requires embed_fn (live ReID)")
+    if emb_cadence is not None:
+        if embed_fn is None:
+            raise ValueError("emb_cadence requires embed_fn (live ReID)")
+        if int(emb_cadence) < 1:
+            raise ValueError(f"emb_cadence must be >= 1, got {emb_cadence}")
+    with_embs = with_embs or embed_fn is not None
+    k_cad = int(emb_cadence) if emb_cadence is not None else 1
+
+    def _embed(crops, d, m, t, stream_ids):
+        from motcpp_tpu_torch.appearance.reid import embed_valid_crops
+
+        budget = crop_budget
+        if k_cad > 1:
+            S, N = m.shape
+            gate = ((t + stream_ids) % k_cad) == 0  # (S,)
+            m = m & gate[:, None]
+            auto = -(-S // k_cad) * N  # at most ceil(S/k) streams gated
+            budget = min(budget, auto) if budget is not None else auto
+        return embed_valid_crops(embed_fn, crops, d, m, budget=budget)
+
+    def run_frames(states, dets, masks, extra, frame0, stream_ids):
         outs, out_masks = [], []
         for t in range(dets.shape[0]):
-            states, (out, out_mask) = step_fn(states, dets[t], masks[t])
+            d, m = dets[t], masks[t]
+            args = [d, m]
+            rest = [x[t] for x in extra]
+            if with_embs:
+                e = rest.pop(0)
+                if embed_fn is not None:
+                    e = _embed(e, d, m, frame0 + t, stream_ids)
+                args.append(e)
+            if with_warps:
+                if not with_embs:
+                    args.append(None)
+                args.append(rest.pop(0))
+            states, (out, out_mask) = step_fn(states, *args)
             outs.append(out)
             out_masks.append(out_mask)
         return states, (torch.stack(outs), torch.stack(out_masks))
 
-    return rollout
+    def rollout(states, dets, masks, *extra):
+        return run_frames(states, dets, masks, extra, 0, None)
+
+    def rollout_cadence(states, frame0, stream_ids, dets, masks, *extra):
+        return run_frames(states, dets, masks, extra, int(frame0), stream_ids)
+
+    return rollout_cadence if k_cad > 1 else rollout
 
 
 def _copy(states):
@@ -44,25 +128,56 @@ class MultiStreamRunner:
         runner = MultiStreamRunner(init_fn, step_fn, n_streams=256)
         outs, out_masks = runner.run(dets, masks)  # (T,S,N,6), (T,S,N)
 
-    The state carries across ``run()`` calls until ``reset()``.
+    Live ReID (appearance/reid.py::make_embed_fn): with ``embed_fn``
+    run() takes raw uint8 crops (T, S, N, Hc, Wc, 3) as ``embs`` and
+    the CNN runs per frame; ``crop_budget`` caps the crops embedded per
+    frame and ``emb_cadence=k`` embeds each stream every k-th frame,
+    staggered by stream, with the phase carried across run() calls. The
+    state carries across ``run()`` calls until ``reset()``.
+    ``emb_priority`` and ``cmc_fn`` are not ported yet and raise.
     """
 
     def __init__(self, init_fn: Callable, step_fn: Callable, n_streams: int,
-                 device="cuda"):
+                 device="cuda", with_embs: bool = False,
+                 with_warps: bool = False, embed_fn: Callable | None = None,
+                 crop_budget: int | None = None,
+                 emb_cadence: int | None = None, emb_priority: bool = False,
+                 cmc_fn: Callable | None = None):
         self.n_streams = int(n_streams)
         self.device = resolve_device(device)
+        self.with_embs = bool(with_embs) or embed_fn is not None
+        self.with_warps = bool(with_warps)
+        self.emb_cadence = int(emb_cadence) if emb_cadence else 1
+        self._use_cadence = self.emb_cadence > 1
         self._init_fn = init_fn
-        self._rollout = make_rollout(step_fn)
+        self._rollout = make_rollout_general(
+            step_fn, with_embs=self.with_embs, with_warps=self.with_warps,
+            embed_fn=embed_fn, crop_budget=crop_budget,
+            emb_cadence=emb_cadence, emb_priority=emb_priority, cmc_fn=cmc_fn)
+        self._frame0 = 0
         self._states = None
 
     def init_states(self):
         return self._init_fn(self.n_streams)
 
-    def run(self, dets, masks, states=None):
+    def run(self, dets, masks, embs=None, warps=None, states=None,
+            frame0=None):
         """Track T frames of all streams; returns (outs, out_masks) on the
-        runner's device. Without ``states`` the call continues from the
-        carried state and updates it; with ``states`` it is pure and the
-        carried state is left as it was."""
+        runner's device. embs (T, S, N, D), or crops under live ReID, is
+        required iff the runner was built with embeddings; warps
+        (T, S, 2, 3) iff with_warps. Without ``states`` the call
+        continues from the carried state (and cadence phase) and updates
+        them; with ``states`` it is pure: the carried state and phase
+        are left as they were, and the cadence phase is ``frame0``
+        (default 0)."""
+        if (embs is not None) != self.with_embs:
+            raise ValueError(
+                "pass embs iff the runner was built with embeddings")
+        if (warps is not None) != self.with_warps:
+            raise ValueError(
+                "pass warps iff the runner was built with with_warps=True")
+        if frame0 is not None and not self._use_cadence:
+            raise ValueError("frame0 only applies with emb_cadence set")
         dets = torch.as_tensor(dets, dtype=torch.float32, device=self.device)
         masks = torch.as_tensor(masks, dtype=torch.bool, device=self.device)
         if dets.dim() != 4 or dets.shape[1] != self.n_streams:
@@ -75,6 +190,22 @@ class MultiStreamRunner:
                 f"masks must be {tuple(dets.shape[:3])}, got "
                 f"{tuple(masks.shape)}"
             )
+        extra = []
+        if embs is not None:
+            embs = torch.as_tensor(embs, device=self.device)
+            if tuple(embs.shape[:3]) != tuple(dets.shape[:3]):
+                raise ValueError(
+                    f"embs must lead with {tuple(dets.shape[:3])}, got "
+                    f"{tuple(embs.shape)}")
+            extra.append(embs)
+        if warps is not None:
+            warps = torch.as_tensor(warps, dtype=torch.float32,
+                                    device=self.device)
+            if tuple(warps.shape) != tuple(dets.shape[:2]) + (2, 3):
+                raise ValueError(
+                    f"warps must be {tuple(dets.shape[:2]) + (2, 3)}, got "
+                    f"{tuple(warps.shape)}")
+            extra.append(warps)
         stateless = states is not None
         if stateless:
             states = _copy(states)
@@ -82,15 +213,24 @@ class MultiStreamRunner:
             states = self._states
         else:
             states = self.init_states()
-        states, outs = self._rollout(states, dets, masks)
+        if self._use_cadence:
+            f0 = int(frame0 or 0) if stateless else self._frame0
+            ids = torch.arange(self.n_streams, device=self.device)
+            states, outs = self._rollout(states, f0, ids, dets, masks, *extra)
+            if not stateless:
+                self._frame0 += dets.shape[0]
+        else:
+            states, outs = self._rollout(states, dets, masks, *extra)
         if not stateless:
             self._states = states
         return outs
 
-    def set_states(self, states):
+    def set_states(self, states, frame0: int = 0):
         """Install a carried state (for example one restored from a
-        checkpoint); later ``run()`` calls continue from it."""
+        checkpoint) and the cadence phase; later ``run()`` calls continue
+        from them."""
         self._states = _copy(states)
+        self._frame0 = int(frame0)
 
     @property
     def states(self):
@@ -99,3 +239,4 @@ class MultiStreamRunner:
 
     def reset(self):
         self._states = None
+        self._frame0 = 0

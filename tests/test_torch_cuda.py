@@ -69,3 +69,60 @@ def test_bytetrack_rollout_kernel_path_equals_plain_path(cuda):
     assert int(km.sum()) > 0
     assert torch.equal(km, pm)
     assert torch.equal(ko[km], po[pm])
+
+
+def osblock_setup(device, dtype, seed=0):
+    """Folded osnet_x0_25 weights packed per block, on ``device``."""
+    from motcpp_tpu_torch.appearance import osblock
+    from motcpp_tpu_torch.appearance.osnet import init_params, osnet_x0_25
+    from motcpp_tpu_torch.appearance.quant import fold_osnet
+
+    folded = fold_osnet(init_params(osnet_x0_25(), seed=seed))
+    folded = {n: {k: v.to(device, dtype) for k, v in leaf.items()}
+              for n, leaf in folded.items()}
+    return folded, osblock.pack_blocks(folded, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("block,hw", [("conv2_0", (16, 8)),
+                                      ("conv2_1", (9, 5)),
+                                      ("conv3_0", (7, 3)),
+                                      ("conv4_1", (4, 2))])
+def test_osblock_kernel_matches_plain_version(cuda, dtype, block, hw):
+    from motcpp_tpu_torch.appearance import osblock, osblock_cuda
+
+    folded, packed = osblock_setup(cuda, dtype)
+    w = packed[block]
+    B = 5  # odd, and fewer crops than CTAs
+    x = torch.relu(torch.randn((B, *hw, w.cin), generator=torch.Generator()
+                               .manual_seed(1))).to(cuda, dtype)
+    before = osblock_cuda.LAUNCHES
+    got = osblock.osblock_fused(w, x)
+    torch.cuda.synchronize()
+    assert osblock_cuda.LAUNCHES == before + 1
+    want = osblock.osblock_reference(folded, block, x, w.cout)
+    assert got.shape == want.shape == (B, *hw, w.cout) and got.dtype == dtype
+    g, r = got.float().reshape(B, -1), want.float().reshape(B, -1)
+    if dtype == torch.float32:
+        assert float((g - r).abs().max() / r.abs().max()) <= 1e-4
+    else:
+        cos = (g * r).sum(1) / (g.norm(dim=1) * r.norm(dim=1))
+        assert float(cos.min()) >= 0.999, cos
+
+
+def test_osblock_wrapper_checks_its_inputs(cuda):
+    from motcpp_tpu_torch.appearance import osblock_cuda
+
+    _, packed = osblock_setup(cuda, torch.float32)
+    w = packed["conv2_0"]
+    x = torch.zeros((2, 8, 4, w.cin), device=cuda)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        osblock_cuda.osblock(w, x.half())
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        osblock_cuda.osblock(w, x.cpu())
+    with pytest.raises(ValueError, match=r"\(B >= 1"):
+        osblock_cuda.osblock(w, x[..., :-1].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        osblock_cuda.osblock(w, x.transpose(1, 2))
+    with pytest.raises(ValueError, match="mats must be"):
+        osblock_cuda.osblock(w, x.bfloat16())

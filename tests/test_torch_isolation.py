@@ -81,6 +81,37 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, tmp_path):
     assert not list(tmp_path.iterdir())
 
 
+def test_live_reid_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
+    from motcpp_tpu_torch import create_tracker
+    from motcpp_tpu_torch.appearance.osnet import osnet_x0_25
+    from motcpp_tpu_torch.appearance.reid import ReIDBackend, make_embed_fn
+    from motcpp_tpu_torch.models.botsort import (
+        BotSortConfig,
+        make_botsort,
+        state_from_numpy,
+    )
+    from motcpp_tpu_torch.parallel.streams import MultiStreamRunner
+
+    model = osnet_x0_25()
+    for fused in (False, True):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make_embed_fn(model, fused=fused)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ReIDBackend()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        create_tracker("botsort")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_botsort(BotSortConfig())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        state_from_numpy({})
+    init, step = make_botsort(BotSortConfig(emb_dim=4), device="cpu")
+    embed = make_embed_fn(model, device="cpu")
+    for kw in ({"embed_fn": embed}, {"embed_fn": embed, "emb_cadence": 8},
+               {"with_warps": True}):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            MultiStreamRunner(init, step, 2, **kw)
+
+
 def test_cpu_is_used_only_when_asked(no_cuda):
     from motcpp_tpu_torch import create_tracker
 

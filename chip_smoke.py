@@ -25,7 +25,9 @@ so those compare float32 arithmetic. Phases:
      version, and a torch.profiler trace of 10 frames;
   4. the same rollout on 256 streams through the kernel and through the
      plain auction: identical masks, ids and boxes;
-  5. the OSBlock kernel's build time and its registers and spills;
+  5. the OSBlock kernel's build time, its registers and spills, and the
+     tensor-core (HMMA) instructions of each instantiation in the built
+     library (cuobjdump -sass): some in bfloat16, none in float32;
   6. the OSBlock kernel against its plain version at the six osnet_x1_0
      block shapes (64 crops of 256x128, seeded inputs and weights):
      float32 max |kernel - plain| / max |plain| <= 1e-4; bfloat16
@@ -374,6 +376,31 @@ def osblock_bound_ms(w, B, H, W, dtype):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def sass_mma_counts(path):
+    """Tensor-core (HMMA) instructions in each instantiation of the
+    OSBlock kernel ({"bfloat16": n, "float32": n}), from cuobjdump -sass
+    of the built library."""
+    from pathlib import Path
+
+    from motcpp_tpu_torch import cuda_build
+
+    cuobjdump = Path(cuda_build.nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(path)],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            fn = None
+            if "osblock_kernel" in name:
+                fn = "bfloat16" if "bfloat16" in name else "float32"
+                counts[fn] = 0
+        elif fn is not None and "HMMA" in line:
+            counts[fn] += 1
+    return counts
+
+
 def crop_cosine(a, b):
     """Per-crop cosine of two (B, ...) tensors, in float32."""
     a, b = a.float().reshape(a.shape[0], -1), b.float().reshape(b.shape[0], -1)
@@ -469,6 +496,14 @@ def live_reid_phases(osblock_build):
              .splitlines() if "registers" in ln or "spill" in ln]
     print(f"phase 5 build: {path.name} in {build_s:.2f} s; ptxas: "
           + " | ".join(ptxas))
+    hmma = sass_mma_counts(path)
+    check(len(hmma) == 2, f"cuobjdump found {sorted(hmma)}, want the two "
+          "instantiations of osblock_kernel")
+    check(hmma["bfloat16"] > 0, "the bfloat16 kernel has no HMMA instruction")
+    check(hmma["float32"] == 0, f"the float32 kernel has {hmma['float32']} "
+          "HMMA instructions (TF32)")
+    print(f"phase 5 SASS: HMMA instructions bfloat16 {hmma['bfloat16']}, "
+          f"float32 {hmma['float32']}")
 
     # ---- 6. kernel against its plain version at the x1_0 shapes ----------
     model = init_params(osnet_x1_0(feature_dim=LIVE_D), seed=0)

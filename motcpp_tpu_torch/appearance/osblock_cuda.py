@@ -8,6 +8,16 @@ happens at import. :func:`osblock` checks its inputs, allocates the
 output and the kernel's scratch with ``torch.empty``, launches on the
 current stream and raises if the launch is refused. It computes nothing
 else: no cuBLAS, cuDNN or PyTorch operator runs on its path.
+
+The kernel walks each crop in tiles of whole map rows (at most 128
+pixels) with one CTA per crop, as many CTAs as the SMs hold at once. In
+bfloat16 its 1x1 products run on the tensor cores (``mma.sync``
+m16n8k16, operands read by ``ldmatrix`` from shared memory); in float32
+as float FMAs on the CUDA cores. Its copies move 16 bytes a thread, so
+the channel widths must be multiples of 8 and x and the packed weights
+16-byte aligned; a map row must fit one tile, and the block's tiles must
+fit a CTA's shared memory. The maps between its passes go through a
+per-CTA scratch in device memory. PERF.md has where its time goes.
 """
 
 from __future__ import annotations
@@ -22,9 +32,6 @@ from motcpp_tpu_torch import cuda_build
 SOURCE = cuda_build.CSRC / "osblock.cu"
 NVCC_FLAGS = (*cuda_build.ARCH_FLAGS, "-O3", "-Xptxas", "-v",
               *cuda_build.SHARED_FLAGS)
-#: resident CTAs per SM that the kernel is built for (its
-#: __launch_bounds__); the grid and the scratch have this many per SM
-CTAS_PER_SM = 2
 MAX_MID = 256  # the gate is computed by one thread per channel
 
 #: kernel launches since the last reset; ``osblock`` adds one per launch
@@ -46,7 +53,10 @@ def _load():
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.osblock_forward.argtypes = [ptr] * 5 + [i32] * 10 + [ptr]
         lib.osblock_forward.restype = ctypes.c_int
-        lib.osblock_smem_bytes.argtypes = [i32, i32]
+        lib.osblock_max_width.restype = i32
+        lib.osblock_smem_bytes.argtypes = [i32, i32, i32, i32]
+        lib.osblock_ctas_per_sm.argtypes = [i32, i32, i32, i32]
+        lib.osblock_ctas_per_sm.restype = i32
         lib.osblock_smem_bytes.restype = ctypes.c_size_t
         lib.osblock_scratch_elems.argtypes = [i32, i32, i32]
         lib.osblock_scratch_elems.restype = ctypes.c_size_t
@@ -65,6 +75,10 @@ def _check(w, x):
     if not (1 <= w.hidden and w.mid <= MAX_MID):
         raise ValueError(f"unsupported block widths mid={w.mid}, "
                          f"hidden={w.hidden}")
+    if w.cin % 8 or w.mid % 8 or w.cout % 8:
+        raise ValueError(f"the kernel's 16-byte copies need cin, mid and cout "
+                         f"to be multiples of 8, got {w.cin}, {w.mid}, "
+                         f"{w.cout}")
     if not w.has_ds and w.cin != w.cout:
         raise ValueError("a block without downsample needs cin == cout")
     for name, t, dtype in (("mats", w.mats, x.dtype),
@@ -80,6 +94,9 @@ def _check(w, x):
                 + (w.cout if w.has_ds else 0))
     if w.mats.numel() != n_mats or w.biases.numel() != n_biases:
         raise ValueError("packed weights do not match the block's widths")
+    for name, t in (("x", x), ("mats", w.mats)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
 
 
 def osblock(w, x: torch.Tensor) -> torch.Tensor:
@@ -92,8 +109,21 @@ def osblock(w, x: torch.Tensor) -> torch.Tensor:
     _check(w, x)
     B, H, W, _ = x.shape
     lib = _load()
+    bf16 = int(x.dtype == torch.bfloat16)
+    if W > lib.osblock_max_width():
+        raise ValueError(f"map rows of {W} pixels exceed the kernel's tile of "
+                         f"{lib.osblock_max_width()}")
+    # one wave of persistent CTAs, as many as the SMs hold at once (two in
+    # bfloat16 at osnet_x1_0's widths, one in float32); a scratch slot each
+    with torch.cuda.device(x.device):
+        per_sm = lib.osblock_ctas_per_sm(W, w.mid, w.hidden, bf16)
+    if per_sm < 1:
+        raise RuntimeError(
+            f"the OSBlock kernel does not fit an SM (block {w.name}, W={W}, "
+            f"mid={w.mid}: {lib.osblock_smem_bytes(W, w.mid, w.hidden, bf16)}"
+            f" bytes of shared memory)")
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    grid = min(B, CTAS_PER_SM * sms)
+    grid = min(B, per_sm * sms)
     out = torch.empty((B, H, W, w.cout), dtype=x.dtype, device=x.device)
     scratch = torch.empty(grid * lib.osblock_scratch_elems(H, W, w.mid),
                           dtype=x.dtype, device=x.device)
@@ -102,15 +132,15 @@ def osblock(w, x: torch.Tensor) -> torch.Tensor:
         err = lib.osblock_forward(
             x.data_ptr(), out.data_ptr(), w.mats.data_ptr(),
             w.biases.data_ptr(), scratch.data_ptr(), B, H, W, w.cin, w.mid,
-            w.cout, w.hidden, int(w.has_ds), grid,
-            int(x.dtype == torch.bfloat16), stream,
+            w.cout, w.hidden, int(w.has_ds), grid, bf16, stream,
         )
     if err != 0:
         raise RuntimeError(
             f"OSBlock kernel launch failed with CUDA error {err} "
             f"(block {w.name}, B={B}, H={H}, W={W}, cin={w.cin}, "
             f"mid={w.mid}, cout={w.cout}, "
-            f"{lib.osblock_smem_bytes(w.mid, w.hidden)} bytes of shared memory)"
+            f"{lib.osblock_smem_bytes(W, w.mid, w.hidden, bf16)} bytes of "
+            f"shared memory)"
         )
     LAUNCHES += 1
     return out

@@ -71,29 +71,50 @@ def test_bytetrack_rollout_kernel_path_equals_plain_path(cuda):
     assert torch.equal(ko[km], po[pm])
 
 
-def osblock_setup(device, dtype, seed=0):
-    """Folded osnet_x0_25 weights packed per block, on ``device``."""
-    from motcpp_tpu_torch.appearance import osblock
-    from motcpp_tpu_torch.appearance.osnet import init_params, osnet_x0_25
+def osblock_setup(device, dtype, seed=0, arch="x0_25"):
+    """Folded OSNet weights (osnet_x0_25 unless ``arch`` says otherwise)
+    packed per block, on ``device``."""
+    from motcpp_tpu_torch.appearance import osblock, osnet
     from motcpp_tpu_torch.appearance.quant import fold_osnet
 
-    folded = fold_osnet(init_params(osnet_x0_25(), seed=seed))
+    model = getattr(osnet, f"osnet_{arch}")()
+    folded = fold_osnet(osnet.init_params(model, seed=seed))
     folded = {n: {k: v.to(device, dtype) for k, v in leaf.items()}
               for n, leaf in folded.items()}
     return folded, osblock.pack_blocks(folded, dtype)
 
 
+# (arch, block, (H, W), crops)
+OSBLOCK_CASES = [
+    # osnet_x0_25: mid 16, 24 and 32 (depths padded to 16 in shared
+    # memory), hidden 1 and 2; odd W; five crops, fewer than CTAs
+    ("x0_25", "conv2_0", (16, 8), 5),
+    ("x0_25", "conv2_1", (9, 5), 5),
+    ("x0_25", "conv3_0", (7, 3), 5),
+    ("x0_25", "conv4_1", (4, 2), 5),
+    # osnet_x0_75's stage 3: mid 72, hidden 4
+    ("x0_75", "conv3_0", (7, 3), 5),
+    ("x0_75", "conv3_1", (16, 8), 5),
+    # several row tiles: a partial last tile (13 rows of 11 in tiles of
+    # 11 rows) and halo rows across tiles; the 64x32 stage-2 map
+    ("x0_25", "conv2_1", (13, 11), 3),
+    ("x0_25", "conv2_0", (64, 32), 3),
+    # more crops than CTAs: a CTA walks several crops, and its gate sums
+    # start again from zero for each
+    ("x0_25", "conv4_0", (4, 2), 600),
+]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("block,hw", [("conv2_0", (16, 8)),
-                                      ("conv2_1", (9, 5)),
-                                      ("conv3_0", (7, 3)),
-                                      ("conv4_1", (4, 2))])
-def test_osblock_kernel_matches_plain_version(cuda, dtype, block, hw):
+@pytest.mark.parametrize(
+    "arch,block,hw,B", OSBLOCK_CASES,
+    ids=[f"{a}-{b}-{h}x{w}-B{n}" for a, b, (h, w), n in OSBLOCK_CASES])
+def test_osblock_kernel_matches_plain_version(cuda, dtype, arch, block, hw,
+                                              B):
     from motcpp_tpu_torch.appearance import osblock, osblock_cuda
 
-    folded, packed = osblock_setup(cuda, dtype)
+    folded, packed = osblock_setup(cuda, dtype, arch=arch)
     w = packed[block]
-    B = 5  # odd, and fewer crops than CTAs
     x = torch.relu(torch.randn((B, *hw, w.cin), generator=torch.Generator()
                                .manual_seed(1))).to(cuda, dtype)
     before = osblock_cuda.LAUNCHES
@@ -126,3 +147,11 @@ def test_osblock_wrapper_checks_its_inputs(cuda):
         osblock_cuda.osblock(w, x.transpose(1, 2))
     with pytest.raises(ValueError, match="mats must be"):
         osblock_cuda.osblock(w, x.bfloat16())
+    with pytest.raises(ValueError, match="multiples of 8"):
+        osblock_cuda.osblock(w._replace(mid=w.mid + 4), x)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        osblock_cuda.osblock(
+            w, torch.zeros(2 * 8 * 4 * w.cin + 1, device=cuda)[1:]
+            .view(2, 8, 4, w.cin))
+    with pytest.raises(ValueError, match="exceed the kernel's tile"):
+        osblock_cuda.osblock(w, torch.zeros((1, 2, 130, w.cin), device=cuda))

@@ -5,7 +5,13 @@ version, drives the ByteTrack multi-stream path at the bench's flagship
 shape and the live-ReID BoT-SORT path at the bench's live-ReID shape,
 and checks what they emit.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--baseline OTHER_AUCTION_CU]
+
+``--baseline`` names another source of the auction kernel with the same
+C interface (such as the parent commit's ``csrc/auction.cu``, unpacked
+from git into a gitignored directory); phases 2 and 3 then time it
+beside this checkout's kernel on the same inputs. Without it they print
+the previous kernel's times on these inputs as PERF.md records them.
 
 Needs one CUDA device (written for an H100, sm_90a) and nvcc. The main
 paths run and are timed with PyTorch's defaults (cuDNN may use TF32 for
@@ -14,15 +20,19 @@ the float32 checks of phases 6 and 8 and the plain versions' timings,
 so those compare float32 arithmetic. Phases:
 
   1. build the auction kernel (and, in parallel, the OSBlock kernel);
-     print the card's name and power limit;
+     print its registers and spills and the card's name and power limit;
   2. the auction kernel against the plain auction at (K, N) = (64, 32),
-     (128, 64), (128, 128) and (256, 128): identical row2col/col2row;
+     (128, 64), (128, 128), (256, 128) and BoT-SORT's (64, 16), and on
+     the edge classes of tests/auction_cases.py (ties, zero benefits of
+     either sign, empty problems, K or N of 1, N of 16, 33 and 128, K of
+     256, a problem that hits MAX_ROUNDS): identical row2col/col2row;
   3. the ByteTrack main path: MultiStreamRunner over ByteTrack with the
      kernel (lap_impl="auction_pallas"), S=4096 streams, K=64 slots,
      N=32 dets, 16 objects, T=60 frames; one warm-up and 5 timed
      run()s, each launching the kernel exactly 2*T times; then the
-     kernel timed on the inputs the main path gave it, beside its plain
-     version, and a torch.profiler trace of 10 frames;
+     kernel timed on the inputs the main path gave it (stage 1 and
+     stages 2+3), beside its plain version and its bound, and a
+     torch.profiler trace of 10 frames;
   4. the same rollout on 256 streams through the kernel and through the
      plain auction: identical masks, ids and boxes;
   5. the OSBlock kernel's build time, its registers and spills, and the
@@ -79,7 +89,16 @@ BF16_OPS_PER_S = 989e12
 
 S, K, N, N_OBJ, T, REPEATS = 4096, 64, 32, 16, 60, 5
 CHECK_SHAPES = [(64, 32, 4096), (128, 64, 1024), (128, 128, 1024),
-                (256, 128, 256)]
+                (256, 128, 256), (64, 16, 256)]
+# ms of the previous auction kernel (one CTA of 256 threads per problem,
+# a K-long column scan per round) on the inputs of phases 2 and 3, as
+# PERF.md records them from its run J (NVIDIA H100 80GB HBM3, 700 W);
+# printed when no --baseline is given
+PREVIOUS_KERNEL_MS = {
+    (64, 32, 4096): 1.1396, (128, 64, 1024): 1.7581,
+    (128, 128, 1024): 7.5479, (256, 128, 256): 3.0143, (64, 16, 256): 0.1078,
+    "stage 1": 0.0579, "stages 2+3": 0.0598,
+}
 EQUAL_STREAMS = 256
 
 # live ReID: bench.py::bench_livereid's shape (S, N, K, D, objects,
@@ -116,11 +135,22 @@ def exact_float32():
 
 
 def cuda_ms(fn, reps):
-    """Mean device time of fn() over reps calls, after one warm-up."""
+    """Mean device time of fn() over reps calls, after one warm-up. The
+    timed calls are queued behind a kernel that sleeps for longer than
+    the host takes to launch them, so the device runs them back to back:
+    a call whose launch takes the host longer than its kernel takes the
+    device is timed by the device, not by the host. (A call that
+    synchronises with the host is timed with the host's gaps.)"""
     fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    # at most 2e9 cycles a second (the H100's boost clock is 1.98 GHz)
+    torch.cuda._sleep(int(min(1.5 * reps * host_s, 0.05) * 2e9))
     start.record()
     for _ in range(reps):
         fn()
@@ -149,16 +179,77 @@ def auction_inputs(rng, P, k, n):
 
 
 def auction_bound_ms(cost, rm, cm, th):
-    """Least time for one solve: each input read once and each output
+    """Least time for one solve: what the function needs read once and
     written once at the HBM rate, or one pass of (v = b - p, max) over
-    every valid pair at the float32 rate, whichever is longer."""
+    every valid pair at the float32 rate, whichever is longer. The bytes
+    are the masks, the thresholds, the outputs, and of the costs only
+    the 32-byte sectors that hold a valid pair (no other cost changes
+    the result)."""
+    P, k, n = cost.shape
+    valid = (rm[:, :, None] & cm[:, None, :]).reshape(-1)
+    pad = -valid.numel() % 8
+    sectors = int(torch.nn.functional.pad(valid, (0, pad)).view(-1, 8)
+                  .any(1).sum())
+    nbytes = (sectors * 32 + rm.numel() + cm.numel() + th.numel() * 4
+              + P * (k + n) * 4)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * int(valid.sum()) / FP32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def full_tile_bound_ms(cost, rm, cm, th):
+    """The bytes bound with every cost tile read whole, as it was stated
+    before the kernel skipped what the function does not need."""
     P, k, n = cost.shape
     nbytes = (cost.numel() * 4 + rm.numel() + cm.numel() + th.numel() * 4
               + P * (k + n) * 4)
-    valid_pairs = int((rm[:, :, None] & cm[:, None, :]).sum())
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 2 * valid_pairs / FP32_OPS_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def baseline_solver(source):
+    """solve() of another auction kernel source with the same C interface
+    as csrc/auction.cu, built with the same flags; its launches are not
+    counted."""
+    import ctypes
+    from pathlib import Path
+
+    from motcpp_tpu_torch import cuda_build
+    from motcpp_tpu_torch.ops import auction, auction_cuda
+
+    lib = ctypes.CDLL(str(cuda_build.build(Path(source).resolve(),
+                                           auction_cuda.NVCC_FLAGS,
+                                           "auction_baseline")))
+    ptr = ctypes.c_void_p
+    lib.auction_solve.argtypes = [ptr, ptr, ptr, ptr, ctypes.c_int,
+                                  ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                                  ctypes.c_int, ptr, ptr, ptr]
+    lib.auction_solve.restype = ctypes.c_int
+
+    def solve(cost, rm, cm, th):
+        P, k, n = cost.shape
+        r2c = torch.empty((P, k), dtype=torch.int32, device=cost.device)
+        c2r = torch.empty((P, n), dtype=torch.int32, device=cost.device)
+        err = lib.auction_solve(
+            cost.data_ptr(), rm.data_ptr(), cm.data_ptr(), th.data_ptr(), P,
+            k, n, auction.EPS_FRAC, auction.MAX_ROUNDS, r2c.data_ptr(),
+            c2r.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"baseline kernel launch failed with CUDA error {err}")
+        return r2c, c2r
+
+    return solve
+
+
+def baseline_ms(baseline, key, args):
+    """The other kernel's time on these inputs: measured when --baseline
+    was given (and checked against the plain auction), else PERF.md's
+    record of the previous kernel, else None."""
+    if baseline is None:
+        return PREVIOUS_KERNEL_MS.get(key), "previous kernel (PERF.md run J)"
+    from motcpp_tpu_torch.ops import auction
+
+    err = matching_err(baseline(*args), auction.solve_lap_auction(*args))
+    check(err == 0, f"baseline kernel and plain auction disagree at {key}")
+    return cuda_ms(lambda: baseline(*args), 10), "baseline kernel"
 
 
 def matching_err(got, want):
@@ -209,7 +300,7 @@ def profile_frames(runner, dets, masks, frames=10):
             f"top operators by device time per frame: {top}")
 
 
-def run_smoke():
+def run_smoke(baseline=None):
     from motcpp_tpu_torch.data import synth_stream_dets
     from motcpp_tpu_torch.models.bytetrack import ByteTrackConfig, make_bytetrack
     from motcpp_tpu_torch.ops import auction, auction_cuda
@@ -231,7 +322,12 @@ def run_smoke():
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    print(f"phase 1 build: {lib.name} in {build_s:.2f} s; card: {smi}")
+    ptxas = [ln.strip() for ln in lib.with_suffix(".log").read_text()
+             .splitlines() if "registers" in ln or "spill" in ln]
+    print(f"phase 1 build: {lib.name} in {build_s:.2f} s; ptxas: "
+          + " | ".join(ptxas) + f"; card: {smi}")
+    if baseline is not None:
+        baseline = baseline_solver(baseline)
 
     # ---- 2. kernel against its plain version -----------------------------
     rng = np.random.default_rng(0)
@@ -246,8 +342,24 @@ def run_smoke():
         matched = int((got[0] >= 0).sum())
         k_ms = cuda_ms(lambda: auction_cuda.solve(*args), 10)
         p_ms = cuda_ms(lambda: auction.solve_lap_auction(*args), 1)
+        o_ms, o_name = baseline_ms(baseline, (k, n, P), args)
+        other = "not measured" if o_ms is None else f"{o_ms:.4f} ms"
         print(f"phase 2 kernel=plain K={k} N={n} P={P}: identical "
-              f"({matched} matches); kernel {k_ms:.4f} ms, plain {p_ms:.2f} ms")
+              f"({matched} matches); kernel {k_ms:.4f} ms, {o_name} {other}, "
+              f"plain {p_ms:.2f} ms")
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                    "tests"))
+    from auction_cases import EDGE_CASES, edge_case
+
+    for case in sorted(EDGE_CASES):
+        args = [torch.from_numpy(a).cuda() for a in edge_case(case)]
+        got = auction_cuda.solve(*args)
+        torch.cuda.synchronize()
+        err = matching_err(got, auction.solve_lap_auction(*args))
+        max_err = max(max_err, err)
+        check(err == 0, f"kernel and plain auction disagree on {case}")
+    print(f"phase 2 kernel=plain on the edge classes "
+          f"{', '.join(sorted(EDGE_CASES))}: identical")
 
     # ---- 3. main path ----------------------------------------------------
     cfg = ByteTrackConfig(max_tracks=K, max_dets=N, lap_impl="auction_pallas")
@@ -315,11 +427,15 @@ def run_smoke():
         ks = cuda_ms(lambda: solve(*args), 20)
         ps = cuda_ms(lambda: auction.solve_lap_auction(*args), 3)
         bs, by = auction_bound_ms(*args)
+        o_ms, o_name = baseline_ms(baseline, name, args)
+        other = "not measured" if o_ms is None else f"{o_ms:.4f} ms"
         k_ms, p_ms, b_ms = k_ms + ks, p_ms + ps, b_ms + bs
         bound_by.add(by)
         print(f"phase 3 kernel on the main path's {name} "
-              f"{tuple(args[0].shape)}: kernel {ks:.4f} ms, plain {ps:.3f} "
-              f"ms, bound {bs:.4f} ms ({by}), max abs err {err}")
+              f"{tuple(args[0].shape)}: kernel {ks:.4f} ms, {o_name} {other}, "
+              f"plain {ps:.3f} ms, bound {bs:.4f} ms ({by}; whole tiles "
+              f"{full_tile_bound_ms(*args):.4f} ms), max abs err {err}")
+    print(f"phase 3 kernel per frame: {k_ms:.4f} ms, bound {b_ms:.4f} ms")
 
     print(f"phase 3 profile: {profile_frames(runner, dets, masks)}")
 
@@ -442,7 +558,8 @@ def profile_live_frame(runner, dets, masks, crops):
     """torch.profiler over one frame of the live path after two: kernel
     time of the OSBlock kernel, the rest of the device span of the
     "osnet" range that chip_smoke's embed wrapper opens (the rest of
-    OSNet), and the kernel time outside it (the tracker)."""
+    OSNet), the kernel time outside it (the tracker), and the auction
+    kernel's part of that."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -466,13 +583,16 @@ def profile_live_frame(runner, dets, masks, crops):
         return "profiler recorded no device time: shares not measured"
     block_us = sum(e.self_device_time_total for e in launched
                    if "osblock" in e.key)
+    auction_us = sum(e.self_device_time_total for e in launched
+                     if "auction" in e.key)
     if not osnet_us:
         split = "no device span of the osnet range: split not measured"
     else:
         split = (f"rest of OSNet's device span {(osnet_us - block_us) / 1e3:.3f}"
                  f" ms ({100 * (osnet_us - block_us) / device_us:.1f}%), "
                  f"tracker and the rest {(device_us - osnet_us) / 1e3:.3f} ms "
-                 f"({100 * (device_us - osnet_us) / device_us:.1f}%)")
+                 f"({100 * (device_us - osnet_us) / device_us:.1f}%), of it "
+                 f"the auction kernel {auction_us / 1e3:.4f} ms")
     return (f"1 frame: wall {wall_us / 1e3:.3f} ms under the profiler, "
             f"kernels {device_us / 1e3:.3f} ms "
             f"({100 * device_us / wall_us:.1f}% of wall); OSBlock kernel "
@@ -713,7 +833,13 @@ def live_reid_phases(osblock_build):
     }
 
 
-def main():
+def main(argv=None):
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--baseline", help="another auction.cu to time beside "
+                        "this checkout's kernel")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
@@ -722,7 +848,7 @@ def main():
               " set CUDA_VISIBLE_DEVICES to one", file=sys.stderr)
         return 1
     try:
-        kernels, smi = run_smoke()
+        kernels, smi = run_smoke(args.baseline)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

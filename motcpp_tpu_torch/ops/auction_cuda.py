@@ -22,7 +22,7 @@ from motcpp_tpu_torch import cuda_build
 from motcpp_tpu_torch.ops import auction
 
 SOURCE = cuda_build.CSRC / "auction.cu"
-NVCC_FLAGS = (*cuda_build.ARCH_FLAGS, "-O3", "-fmad=false",
+NVCC_FLAGS = (*cuda_build.ARCH_FLAGS, "-O3", "-fmad=false", "-Xptxas", "-v",
               *cuda_build.SHARED_FLAGS)
 MAX_K = 256
 MAX_N = 128

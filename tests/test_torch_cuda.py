@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from auction_cases import EDGE_CASES, edge_case
 from motcpp_tpu_torch.data import synth_stream_dets
 from motcpp_tpu_torch.models.bytetrack import ByteTrackConfig, make_bytetrack
 from motcpp_tpu_torch.ops import auction, auction_cuda
@@ -39,10 +40,7 @@ def problems(seed, P, K, N):
     return [torch.from_numpy(a) for a in (cost, rm, cm, th)]
 
 
-@pytest.mark.parametrize("shape", [(512, 64, 32), (64, 128, 64),
-                                   (64, 128, 128), (32, 256, 128), (3, 1, 1)])
-def test_auction_kernel_matches_plain_version(cuda, shape):
-    args = problems(sum(shape), *shape)
+def assert_kernel_equals_plain(cuda, args):
     want = auction.solve_lap_auction(*args)
     before = auction_cuda.LAUNCHES
     got = auction_cuda.solve(*(a.to(cuda) for a in args))
@@ -50,6 +48,25 @@ def test_auction_kernel_matches_plain_version(cuda, shape):
     assert auction_cuda.LAUNCHES == before + 1
     assert torch.equal(got[0].cpu(), want[0])
     assert torch.equal(got[1].cpu(), want[1])
+
+
+@pytest.mark.parametrize("shape", [(512, 64, 32), (64, 128, 64),
+                                   (64, 128, 128), (32, 256, 128), (3, 1, 1),
+                                   (256, 64, 16), (4096, 64, 32)])
+def test_auction_kernel_matches_plain_version(cuda, shape):
+    """Few problems get several warps each, a full wave one warp each
+    (4096 at K=64, N=32, as on ByteTrack's main path)."""
+    assert_kernel_equals_plain(cuda, problems(sum(shape), *shape))
+
+
+@pytest.mark.parametrize("case", sorted(EDGE_CASES))
+def test_auction_kernel_matches_plain_version_on_edge_classes(cuda, case):
+    """The classes of tests/auction_cases.py, on which the plain auction
+    matches the JAX Pallas kernel (tests/test_torch_lap.py); round_cap
+    also shows that col2row read from the owners equals the plain
+    version's rebuild after MAX_ROUNDS."""
+    assert_kernel_equals_plain(
+        cuda, [torch.from_numpy(a) for a in edge_case(case)])
 
 
 def test_bytetrack_rollout_kernel_path_equals_plain_path(cuda):

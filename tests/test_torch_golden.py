@@ -40,7 +40,24 @@ def test_port_cli_writes_botsort_goldens(which, tmp_path):
     check_goldens("botsort", which, tmp_path)
 
 
-def test_port_loader_parses_as_the_jax_package():
+@pytest.fixture
+def jax_native_parser(monkeypatch, tmp_path):
+    """The JAX package's native parser, built into a library of this test
+    and loaded from it. ``native_io`` builds ``native/libmotcpp_io.so``
+    in place at first use and keeps a failed load for the rest of the
+    process, so under several workers one process can open another's
+    half-written library and then parse with the Python fallback, which
+    rounds otherwise. A library no other process writes is complete once
+    its build returns."""
+    from motcpp_tpu.utils import native_io
+
+    monkeypatch.setattr(native_io, "_SO", tmp_path / "libmotcpp_io.so")
+    monkeypatch.setattr(native_io, "_lib", None)
+    monkeypatch.setattr(native_io, "_tried", False)
+    assert native_io.available(), "the JAX package's native parser did not build"
+
+
+def test_port_loader_parses_as_the_jax_package(jax_native_parser):
     """Detections identical to the JAX package's loader, to the bit: its
     native parser (native/motcpp_io.cpp) reads float32 values and adds
     x + w in float32, which a float64 sum rounded once can miss by an ulp

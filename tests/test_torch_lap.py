@@ -7,7 +7,11 @@ identical, not close.
   * the port's plain auction (the CPU path of impl="auction_pallas")
     against the JAX Pallas kernel in interpret mode and against the jnp
     auction, including the dense near-tie class of
-    tests/test_auction.py::test_worst_case_random_costs_regression.
+    tests/test_auction.py::test_worst_case_random_costs_regression, and
+    against the Pallas kernel on the classes the CUDA kernel's design
+    relies on (tests/auction_cases.py: ties, zero benefits of either
+    sign, empty problems, K or N of 1, N of 16, 33 and 128, K of 256,
+    a problem that hits MAX_ROUNDS).
 
 The CUDA kernel is held against the plain auction in test_torch_cuda.py.
 """
@@ -18,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from auction_cases import EDGE_CASES, edge_case
 from motcpp_tpu.ops.auction import solve_lap_auction as jax_auction
 from motcpp_tpu.ops.auction_pallas import solve_lap_auction_pallas
 from motcpp_tpu.ops.lap import solve_lap_masked as jax_lap
@@ -101,15 +106,19 @@ AUCTION_CASES = {
 }
 
 
-@pytest.mark.parametrize("case", sorted(AUCTION_CASES))
+@pytest.mark.parametrize("case", sorted(AUCTION_CASES) + sorted(EDGE_CASES))
 @pytest.mark.parametrize("impl", ["auction", "auction_pallas"])
 def test_plain_auction_matches_jax_pallas_kernel(case, impl):
-    spec, thresh = AUCTION_CASES[case]
-    cost, rm, cm = problems(len(case), **spec)
-    rm[0] = False  # one empty problem
+    if case in AUCTION_CASES:
+        spec, thresh = AUCTION_CASES[case]
+        cost, rm, cm = problems(len(case), **spec)
+        rm[0] = False  # one empty problem
+    else:
+        cost, rm, cm, thresh = edge_case(case)
     want = jax_batched(lambda c, r, m, t: solve_lap_auction_pallas(c, r, m, t),
                        cost, rm, cm, thresh)
-    assert_same(port(cost, rm, cm, thresh, impl), want)
+    th = torch.from_numpy(np.broadcast_to(np.float32(thresh), (len(cost),)).copy())
+    assert_same(port(cost, rm, cm, th, impl), want)
     assert_same(want, jax_batched(lambda c, r, m, t: jax_auction(c, r, m, t),
                                   cost, rm, cm, thresh))
 

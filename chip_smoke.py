@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """On-card smoke run of motcpp_tpu_torch: builds the CUDA kernels from
 the sources in this checkout, holds each against its plain PyTorch
-version, drives the ByteTrack multi-stream path at the bench's flagship
-shape and the live-ReID BoT-SORT path at the bench's live-ReID shape,
-and checks what they emit.
+version, drives the ByteTrack, SORT and OC-SORT multi-stream paths at
+the bench's shapes and the live-ReID BoT-SORT and StrongSORT paths at
+the bench's live-ReID shape, and checks what they emit.
 
     python3 chip_smoke.py [--baseline OTHER_AUCTION_CU]
 
@@ -56,12 +56,29 @@ so those compare float32 arithmetic. Phases:
      with the auction kernel and with the plain auction on the same
      embeddings (identical masks, ids, boxes); and, reported, the share
      of identical emissions of the live path with kernel and with plain
-     embeddings.
+     embeddings;
+  9. SORT at bench.py's saturation point (min_hits=1, max_age=3), S=4096,
+     K=64, N=32, 16 objects, T=60, one kernel launch a frame: timed as
+     phase 3, the kernel on the path's own inputs beside its bound, a
+     profile, and the kernel path against the plain path on 256 streams;
+ 10. the same for OC-SORT (min_hits=1) at S=2048, bench.py's default,
+     two launches a frame (stage 1 and the OCR rematch);
+ 11. StrongSORT live ReID (n_init=1, gallery_cap=16, osnet_x1_0 bf16
+     fused, 256x128 crops made on the card) at its deployed point
+     (bench.py DEPLOYED --emb-priority 0.6: N=32, a budget of
+     round(0.6*128*32) = 2458 crops filled by embedding priority) and
+     every frame (N=16, 2048 crops), six OSBlock and two auction
+     launches a frame; at the deployed point the OSBlock kernel on the
+     path's own inputs, a profile of one frame, the auction kernel
+     path against the plain auction on the same embeddings, and the
+     share of identical emissions with kernel and plain embeddings.
 
 Any failed check exits nonzero before the result is printed. The last
 line is ``{"ok": true, "device": {...}}``; the line before it is the
 card's name and power limit, and the one before that lists the kernels
-with their times and bounds.
+with their times and bounds (those of phases 3 and 7) and their
+launches summed over the main paths of phases 3, 7, 9, 10 and 11, each
+counted from zero.
 """
 
 from __future__ import annotations
@@ -107,7 +124,11 @@ LIVE_S, LIVE_N, LIVE_K, LIVE_D, LIVE_OBJ, LIVE_T = 128, 16, 64, 512, 14, 4
 CROP_HW = (256, 128)
 CADENCE = 8
 BLOCK_CHECK_B = 64
-EQUAL_T = 12  # frames of the kernel-path-vs-plain-path BoT-SORT runs
+EQUAL_T = 12  # frames of the kernel-path-vs-plain-path live runs
+# StrongSORT's deployed live-ReID point (bench.py DEPLOYED: --emb-priority
+# 0.6): bench_livereid raises N to 32 and embeds round(0.6 * S * N) crops
+PRIORITY, PRIORITY_N = 0.6, 32
+OC_S = 2048  # bench.py's default stream count for OC-SORT
 
 
 class SmokeFailure(Exception):
@@ -301,10 +322,10 @@ def profile_frames(runner, dets, masks, frames=10):
 
 
 def run_smoke(baseline=None):
-    from motcpp_tpu_torch.data import synth_stream_dets
     from motcpp_tpu_torch.models.bytetrack import ByteTrackConfig, make_bytetrack
+    from motcpp_tpu_torch.models.ocsort import OCSortConfig, make_ocsort
+    from motcpp_tpu_torch.models.sort import SortConfig, make_sort
     from motcpp_tpu_torch.ops import auction, auction_cuda
-    from motcpp_tpu_torch.parallel.streams import MultiStreamRunner
 
     # ---- 1. build (both kernels, one nvcc each, started together) ------
     from motcpp_tpu_torch.appearance import osblock_cuda
@@ -361,14 +382,95 @@ def run_smoke(baseline=None):
     print(f"phase 2 kernel=plain on the edge classes "
           f"{', '.join(sorted(EDGE_CASES))}: identical")
 
-    # ---- 3. main path ----------------------------------------------------
-    cfg = ByteTrackConfig(max_tracks=K, max_dets=N, lap_impl="auction_pallas")
-    init, step = make_bytetrack(cfg, device="cuda")
-    dets_np, masks_np = synth_stream_dets(np.random.default_rng(0), T, S, N,
-                                          n_obj=N_OBJ)
+    # ---- 3-4. the ByteTrack main path; kernel path against plain path ---
+    byte = tracker_path(
+        (3, 4), "ByteTrack", S, ("stage 1", "stages 2+3"),
+        lambda lap: make_bytetrack(ByteTrackConfig(
+            max_tracks=K, max_dets=N, lap_impl=lap), device="cuda"),
+        smi, previous=lambda name, args: baseline_ms(baseline, name, args))
+
+    # ---- 5-8. the live-ReID BoT-SORT path --------------------------------
+    live = live_reid_phases(osblock_build, smi)
+
+    # ---- 9. SORT at bench.py's saturation point ---------------------------
+    sort = tracker_path(
+        (9, 9), "SORT", S, ("stage 1",),
+        lambda lap: make_sort(SortConfig(
+            min_hits=1, max_age=3, max_tracks=K, max_dets=N, lap_impl=lap),
+            device="cuda"), smi)
+
+    # ---- 10. OC-SORT at bench.py's default stream count ------------------
+    ocsort = tracker_path(
+        (10, 10), "OC-SORT", OC_S, ("stage 1", "OCR"),
+        lambda lap: make_ocsort(OCSortConfig(
+            min_hits=1, max_tracks=K, max_dets=N, lap_impl=lap),
+            device="cuda"), smi)
+
+    # ---- 11. StrongSORT live ReID at its deployed priority budget --------
+    strong = strongsort_phases(live["model"], smi)
+
+    paths = (byte, live, sort, ocsort, strong)
+    kernels = [{
+        "name": "auction",
+        "route": "cuda",
+        "source": "motcpp_tpu_torch/csrc/auction.cu",
+        "replaces": "motcpp_tpu/ops/auction_pallas.py:66",
+        "launches": sum(p["auction_launches"] for p in paths),
+        # the live paths compare emissions only, not the kernel's output
+        "max_abs_err": max(max_err, byte["auction_err"], sort["auction_err"],
+                           ocsort["auction_err"]),
+        "ms": byte["ms"],
+        "plain_ms": byte["plain_ms"],
+        "bound_ms": byte["bound_ms"],
+        "bound_by": byte["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "osblock",
+        "route": "cuda",
+        "source": "motcpp_tpu_torch/csrc/osblock.cu",
+        "replaces": "motcpp_tpu/appearance/osblock_pallas.py:95",
+        "launches": live["osblock_launches"] + strong["osblock_launches"],
+        "max_abs_err": max(live["osblock"]["max_err"],
+                           strong["osblock"]["max_err"]),
+        "ms": live["osblock"]["ms"],
+        "plain_ms": live["osblock"]["plain_ms"],
+        "bound_ms": live["osblock"]["bound_ms"],
+        "bound_by": live["osblock"]["bound_by"],
+        "library_ms": None,
+    }]
+    for name, p in zip(("ByteTrack", "BoT-SORT live", "SORT", "OC-SORT",
+                        "StrongSORT live"), paths):
+        print(f"launches on the {name} path: auction {p['auction_launches']}"
+              + (f", OSBlock {p['osblock_launches']}"
+                 if "osblock_launches" in p else ""))
+    return kernels, smi
+
+
+def tracker_path(phases, label, n_streams, stage_names, make, card,
+                 previous=None):
+    """A tracker's multi-stream main path through the auction kernel and
+    its checks: one warm-up and REPEATS timed run()s of T frames from a
+    reset state, each launching the kernel len(stage_names) times a
+    frame; the kernel on the inputs the path gives it mid-sequence,
+    beside its plain version and its bound; a profile of 10 frames; and
+    (phase ``phases[1]``) the same rollout on EQUAL_STREAMS streams
+    through the kernel and through the plain auction. ``make(lap)``
+    returns the tracker's (init_fn, step_fn); ``card`` is nvidia-smi's
+    name and power limit, printed with the times; ``previous(stage name,
+    args)``, given for ByteTrack, returns the previous auction kernel's
+    ms on the stage's inputs and what was timed (see ``baseline_ms``)."""
+    from motcpp_tpu_torch.data import synth_stream_dets
+    from motcpp_tpu_torch.ops import auction, auction_cuda
+    from motcpp_tpu_torch.parallel.streams import MultiStreamRunner
+
+    phase, eq_phase = phases
+    per_frame = len(stage_names)
+    init, step = make("auction_pallas")
+    dets_np, masks_np = synth_stream_dets(np.random.default_rng(0), T,
+                                          n_streams, N, n_obj=N_OBJ)
     dets = torch.from_numpy(dets_np).cuda()
     masks = torch.from_numpy(masks_np).cuda()
-    runner = MultiStreamRunner(init, step, S, device="cuda")
+    runner = MultiStreamRunner(init, step, n_streams, device="cuda")
 
     auction_cuda.LAUNCHES = 0
     times, emitted = [], 0
@@ -381,25 +483,27 @@ def run_smoke(baseline=None):
         torch.cuda.synchronize()
         if rep:
             times.append(time.perf_counter() - t0)
-        check(auction_cuda.LAUNCHES - before == 2 * T,
-              f"run {rep}: {auction_cuda.LAUNCHES - before} kernel launches, "
-              f"want {2 * T}")
+        check(auction_cuda.LAUNCHES - before == per_frame * T,
+              f"{label} run {rep}: {auction_cuda.LAUNCHES - before} kernel "
+              f"launches, want {per_frame * T}")
         emitted = int(out_masks.sum())
     launches = auction_cuda.LAUNCHES
-    check(launches > 0, "the main path never launched the kernel")
-    check(outs.shape == (T, S, K, 8) and out_masks.shape == (T, S, K),
-          f"output shapes {tuple(outs.shape)}, {tuple(out_masks.shape)}")
-    check(emitted > 0, "the main path emitted no tracks")
+    check(launches > 0, f"the {label} path never launched the kernel")
+    check(outs.shape == (T, n_streams, K, 8)
+          and out_masks.shape == (T, n_streams, K),
+          f"{label} output shapes {tuple(outs.shape)}, "
+          f"{tuple(out_masks.shape)}")
+    check(emitted > 0, f"the {label} path emitted no tracks")
     check(bool(torch.isfinite(outs[out_masks]).all()),
-          "non-finite emitted boxes")
+          f"{label}: non-finite emitted boxes")
     run_s = float(np.median(times))
-    fps = S * T / run_s
-    print(f"phase 3 main path S={S} K={K} N={N} T={T}: "
-          f"{run_s * 1e3 / T:.3f} ms per frame-batch (median of {REPEATS}, "
-          f"runs {[round(t * 1e3, 1) for t in times]} ms), {fps:.0f} "
-          f"frames/s, {fps / 30:.0f} streams at 30 FPS, {emitted} emissions "
-          f"in the last run, {launches} kernel launches "
-          f"({launches // (1 + REPEATS)} per run)")
+    fps = n_streams * T / run_s
+    print(f"phase {phase} {label} main path S={n_streams} K={K} N={N} T={T}: "
+          f"{run_s * 1e3 / T:.3f} ms per frame-batch (median of "
+          f"{REPEATS}, runs {[round(t * 1e3, 1) for t in times]} ms), "
+          f"{fps:.0f} frames/s, {fps / 30:.0f} streams at 30 FPS, {emitted} "
+          f"emissions in the last run, {launches} kernel launches "
+          f"({launches // (1 + REPEATS)} per run); card: {card}")
 
     # the kernel on the inputs the main path gives it, mid-sequence
     runner.reset()
@@ -416,62 +520,51 @@ def run_smoke(baseline=None):
         runner.run(dets[T // 2: T // 2 + 1], masks[T // 2: T // 2 + 1])
     finally:
         auction_cuda.solve = solve
-    check(len(captured) == 2, f"captured {len(captured)} solves, want 2")
+    check(len(captured) == per_frame,
+          f"{label}: captured {len(captured)} solves, want {per_frame}")
     k_ms = p_ms = b_ms = 0.0
-    bound_by = set()
-    for name, args in zip(("stage 1", "stages 2+3"), captured):
+    bound_by, max_err = set(), 0
+    for name, args in zip(stage_names, captured):
         err = matching_err(solve(*args), auction.solve_lap_auction(*args))
         max_err = max(max_err, err)
-        check(err == 0,
-              f"kernel and plain auction disagree on the main path's {name}")
+        check(err == 0, f"kernel and plain auction disagree on the {label} "
+              f"path's {name}")
         ks = cuda_ms(lambda: solve(*args), 20)
         ps = cuda_ms(lambda: auction.solve_lap_auction(*args), 3)
         bs, by = auction_bound_ms(*args)
-        o_ms, o_name = baseline_ms(baseline, name, args)
-        other = "not measured" if o_ms is None else f"{o_ms:.4f} ms"
+        other = ""
+        if previous is not None:
+            o_ms, o_name = previous(name, args)
+            other = (f", {o_name} "
+                     + ("not measured" if o_ms is None else f"{o_ms:.4f} ms"))
         k_ms, p_ms, b_ms = k_ms + ks, p_ms + ps, b_ms + bs
         bound_by.add(by)
-        print(f"phase 3 kernel on the main path's {name} "
-              f"{tuple(args[0].shape)}: kernel {ks:.4f} ms, {o_name} {other}, "
-              f"plain {ps:.3f} ms, bound {bs:.4f} ms ({by}; whole tiles "
+        print(f"phase {phase} kernel on the {label} path's {name} "
+              f"{tuple(args[0].shape)}: kernel {ks:.4f} ms{other}, plain "
+              f"{ps:.3f} ms, bound {bs:.4f} ms ({by}; whole tiles "
               f"{full_tile_bound_ms(*args):.4f} ms), max abs err {err}")
-    print(f"phase 3 kernel per frame: {k_ms:.4f} ms, bound {b_ms:.4f} ms")
+    print(f"phase {phase} {label} kernel per frame: {k_ms:.4f} ms, plain "
+          f"{p_ms:.3f} ms, bound {b_ms:.4f} ms; card: {card}")
+    print(f"phase {phase} {label} profile: "
+          f"{profile_frames(runner, dets, masks)}")
 
-    print(f"phase 3 profile: {profile_frames(runner, dets, masks)}")
-
-    # ---- 4. kernel path against the plain path ---------------------------
+    # kernel path against the plain path
     d, m = dets[:, :EQUAL_STREAMS], masks[:, :EQUAL_STREAMS]
-    emitted_by = {}
     results = {}
     for lap in ("auction_pallas", "auction"):
-        i_fn, s_fn = make_bytetrack(
-            ByteTrackConfig(max_tracks=K, max_dets=N, lap_impl=lap),
-            device="cuda")
+        i_fn, s_fn = make(lap)
         results[lap] = MultiStreamRunner(i_fn, s_fn, EQUAL_STREAMS,
                                          device="cuda").run(d, m)
-        emitted_by[lap] = int(results[lap][1].sum())
     (ko, km), (po, pm) = results["auction_pallas"], results["auction"]
-    check(torch.equal(km, pm), "kernel and plain paths emit different masks")
+    check(torch.equal(km, pm),
+          f"{label}: kernel and plain paths emit different masks")
     check(torch.equal(ko[km], po[pm]),
-          "kernel and plain paths emit different ids or boxes")
-    print(f"phase 4 kernel path = plain path on {EQUAL_STREAMS} streams: "
-          f"identical ({emitted_by['auction_pallas']} emissions)")
-
-    kernels = [{
-        "name": "auction",
-        "route": "cuda",
-        "source": "motcpp_tpu_torch/csrc/auction.cu",
-        "replaces": "motcpp_tpu/ops/auction_pallas.py:66",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": k_ms,
-        "plain_ms": p_ms,
-        "bound_ms": b_ms,
-        "bound_by": "bytes" if bound_by == {"bytes"} else "operations",
-        "library_ms": None,
-    }]
-    kernels.append(live_reid_phases(osblock_build))
-    return kernels, smi
+          f"{label}: kernel and plain paths emit different ids or boxes")
+    print(f"phase {eq_phase} {label} kernel path = plain path on "
+          f"{EQUAL_STREAMS} streams: identical ({int(km.sum())} emissions)")
+    return {"auction_launches": launches, "auction_err": max_err, "ms": k_ms,
+            "plain_ms": p_ms, "bound_ms": b_ms,
+            "bound_by": "bytes" if bound_by == {"bytes"} else "operations"}
 
 
 def osblock_bound_ms(w, B, H, W, dtype):
@@ -600,7 +693,111 @@ def profile_live_frame(runner, dets, masks, crops):
             f"{split}; {sum(e.count for e in launched)} kernels")
 
 
-def live_reid_phases(osblock_build):
+def check_live_outputs(label, e, outs, out_masks):
+    """Checks of a live-ReID run: the last embeddings finite and of unit
+    norm (zero where a crop was not embedded), tracks emitted, their
+    boxes finite; returns the emissions."""
+    norms = e.norm(dim=1)
+    check(bool(torch.isfinite(e).all()), f"{label}: non-finite embeddings")
+    nonzero = norms > 0
+    check(bool(((norms[nonzero] - 1).abs() < 1e-3).all())
+          and int(nonzero.sum()) > 0, f"{label}: embeddings not unit norm")
+    emitted = int(out_masks.sum())
+    check(emitted > 0, f"{label}: no tracks emitted")
+    check(bool(torch.isfinite(outs[out_masks]).all()),
+          f"{label}: non-finite emitted boxes")
+    return emitted
+
+
+def osblock_on_path(phase, runner, dets, masks, crops):
+    """The OSBlock kernel on the inputs a live path gives each block (its
+    third frame, after two from a fresh ``runner``), beside its plain
+    version (float32 products) and its bound; returns the per-frame
+    sums."""
+    from motcpp_tpu_torch.appearance import osblock, osblock_cuda
+
+    runner.run(dets[:2], masks[:2], embs=crops[:2])
+    captured = []
+    launch = osblock_cuda.osblock
+
+    def recording(w, x):
+        captured.append((w, x.clone()))
+        return launch(w, x)
+
+    osblock_cuda.osblock = recording
+    try:
+        runner.run(dets[2:3], masks[2:3], embs=crops[2:3])
+    finally:
+        osblock_cuda.osblock = launch
+    check(len(captured) == 6, f"captured {len(captured)} blocks, want 6")
+    with exact_float32():
+        k_ms = p_ms = b_ms = 0.0
+        bound_by, max_err = set(), 0.0
+        for w, x in captured:
+            got = launch(w, x)
+            ref = osblock.osblock_reference(w.folded, w.name, x, w.cout)
+            err = float((got.float() - ref.float()).abs().max())
+            cos = float(crop_cosine(got, ref).min())
+            check(cos >= 0.999,
+                  f"main path {w.name}: cosine {cos:.5f} < 0.999")
+            max_err = max(max_err, err)
+            ks = cuda_ms(lambda: launch(w, x), 3)
+            ps = cuda_ms(lambda: osblock.osblock_reference(w.folded, w.name, x,
+                                                           w.cout), 1)
+            bs, by = osblock_bound_ms(w, *x.shape[:3], x.dtype)
+            k_ms, p_ms, b_ms = k_ms + ks, p_ms + ps, b_ms + bs
+            bound_by.add(by)
+            print(f"phase {phase} kernel on the main path's {w.name} "
+                  f"{tuple(x.shape)} {str(x.dtype)[6:]}: kernel {ks:.3f} ms, "
+                  f"plain {ps:.3f} ms, bound {bs:.4f} ms ({by}), max abs err "
+                  f"{err:.4g}, min cosine {cos:.6f}")
+        print(f"phase {phase} OSBlock kernel per frame (six blocks): "
+              f"{k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {b_ms:.4f} ms")
+    return {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+            "bound_by": "bytes" if bound_by == {"bytes"} else "operations",
+            "max_err": max_err}
+
+
+def auction_paths_equal(label, make, embed, dets, masks, crops):
+    """The tracker with the auction kernel and with the plain auction on
+    the same embeddings of ``crops`` (every crop embedded): identical
+    masks, ids and boxes; returns the emissions."""
+    from motcpp_tpu_torch.parallel.streams import MultiStreamRunner
+
+    S_, n = crops.shape[1:3]
+    embs = torch.stack([embed(c.reshape(-1, *CROP_HW, 3)).reshape(S_, n, -1)
+                        for c in crops])
+    emitted = {}
+    for lap in ("auction_pallas", "auction"):
+        i_fn, s_fn = make(lap)
+        emitted[lap] = MultiStreamRunner(i_fn, s_fn, S_, device="cuda",
+                                         with_embs=True).run(dets, masks,
+                                                             embs=embs)
+    (ko, km), (po, pm) = emitted["auction_pallas"], emitted["auction"]
+    check(torch.equal(km, pm), f"{label}: kernel and plain auction emit "
+          "different masks")
+    check(torch.equal(ko[km], po[pm]), f"{label}: kernel and plain auction "
+          "emit different ids or boxes")
+    return int(km.sum())
+
+
+def emission_share(runner_for, embed, plain_embed, dets, masks, crops):
+    """The live path with the OSBlock kernel's embeddings and with the
+    plain (folded) version's: the share of emissions with the same id
+    and a box within 1e-3 px, reported (bf16 products round otherwise,
+    so a few associations may differ)."""
+    paths = {}
+    for label, fn in (("kernel", embed), ("plain", plain_embed)):
+        paths[label] = runner_for(fn).run(dets, masks, embs=crops)
+    (ko, km), (po, pm) = paths["kernel"], paths["plain"]
+    same = km & pm & (ko[..., 4] == po[..., 4]) & (
+        (ko[..., :4] - po[..., :4]).abs().amax(-1) <= 1e-3)
+    share = int(same.sum()) / max(int(km.sum()), int(pm.sum()), 1)
+    return (f"{int(km.sum())} vs {int(pm.sum())} emissions, "
+            f"{100 * share:.2f}% identical")
+
+
+def live_reid_phases(osblock_build, card):
     from motcpp_tpu_torch.appearance import osblock, osblock_cuda
     from motcpp_tpu_torch.appearance.osnet import init_params, osnet_x1_0
     from motcpp_tpu_torch.appearance.quant import fold_osnet
@@ -706,69 +903,22 @@ def live_reid_phases(osblock_build):
         run_s, times, outs, out_masks = timed_runs(runner, dets, masks, crops,
                                                    counters, want)
         if cadence is None:
-            launches = osblock_cuda.LAUNCHES
-        e = last[0]
-        norms = e.norm(dim=1)
-        check(bool(torch.isfinite(e).all()), f"{label}: non-finite embeddings")
-        nonzero = norms > 0
-        check(bool(((norms[nonzero] - 1).abs() < 1e-3).all())
-              and int(nonzero.sum()) > 0, f"{label}: embeddings not unit norm")
-        emitted = int(out_masks.sum())
-        check(emitted > 0, f"{label}: no tracks emitted")
-        check(bool(torch.isfinite(outs[out_masks]).all()),
-              f"{label}: non-finite emitted boxes")
+            launches = {m: m.LAUNCHES for m in counters}
+        emitted = check_live_outputs(label, last[0], outs, out_masks)
         per_frame = (LIVE_S * LIVE_N if cadence is None
                      else -(-LIVE_S // cadence) * LIVE_N)
         fps = LIVE_S * LIVE_T / run_s
         print(f"phase 7 live ReID {label}: S={LIVE_S} N={LIVE_N} K={LIVE_K} "
               f"D={LIVE_D} osnet_x1_0 bf16 {CROP_HW[0]}x{CROP_HW[1]} T={LIVE_T}"
-              f": {run_s * 1e3 / LIVE_T:.3f} ms per frame-batch (median of "
-              f"{REPEATS}, runs {[round(t * 1e3, 1) for t in times]} ms), "
+              f": {run_s * 1e3 / LIVE_T:.3f} ms per frame-batch (median "
+              f"of {REPEATS}, runs {[round(t * 1e3, 1) for t in times]} ms), "
               f"{fps / 30:.2f} streams at 30 FPS, "
               f"{per_frame * LIVE_T / run_s:.0f} crops/s ({per_frame} per "
-              f"frame), {emitted} emissions in the last run")
+              f"frame), {emitted} emissions in the last run; card: {card}")
 
     # the kernel on the inputs the main path gives each block (frame 2)
-    runner = MultiStreamRunner(init, step, LIVE_S, device="cuda",
-                               embed_fn=embed)
-    runner.run(dets[:2], masks[:2], embs=crops[:2])
-    captured = []
-    launch = osblock_cuda.osblock
-
-    def recording(w, x):
-        captured.append((w, x.clone()))
-        return launch(w, x)
-
-    osblock_cuda.osblock = recording
-    try:
-        runner.run(dets[2:3], masks[2:3], embs=crops[2:3])
-    finally:
-        osblock_cuda.osblock = launch
-    check(len(captured) == 6, f"captured {len(captured)} blocks, want 6")
-    with exact_float32():
-        k_ms = p_ms = b_ms = 0.0
-        bound_by, max_err = set(), 0.0
-        for w, x in captured:
-            got = launch(w, x)
-            ref = osblock.osblock_reference(w.folded, w.name, x, w.cout)
-            err = float((got.float() - ref.float()).abs().max())
-            cos = float(crop_cosine(got, ref).min())
-            check(cos >= 0.999,
-                  f"main path {w.name}: cosine {cos:.5f} < 0.999")
-            max_err = max(max_err, err)
-            ks = cuda_ms(lambda: launch(w, x), 3)
-            ps = cuda_ms(lambda: osblock.osblock_reference(w.folded, w.name, x,
-                                                           w.cout), 1)
-            bs, by = osblock_bound_ms(w, *x.shape[:3], x.dtype)
-            k_ms, p_ms, b_ms = k_ms + ks, p_ms + ps, b_ms + bs
-            bound_by.add(by)
-            print(f"phase 7 kernel on the main path's {w.name} "
-                  f"{tuple(x.shape)} {str(x.dtype)[6:]}: kernel {ks:.3f} ms, "
-                  f"plain {ps:.3f} ms, bound {bs:.4f} ms ({by}), max abs err "
-                  f"{err:.4g}, min cosine {cos:.6f}")
-        print(f"phase 7 OSBlock kernel per frame (six blocks): {k_ms:.3f} ms, "
-              f"plain {p_ms:.3f} ms, bound {b_ms:.4f} ms")
-    del captured
+    block_stats = osblock_on_path(7, MultiStreamRunner(
+        init, step, LIVE_S, device="cuda", embed_fn=embed), dets, masks, crops)
     runner = MultiStreamRunner(init, step, LIVE_S, device="cuda",
                                embed_fn=embed_fn)
     print(f"phase 7 profile: {profile_live_frame(runner, dets, masks, crops)}")
@@ -784,53 +934,131 @@ def live_reid_phases(osblock_build):
         print(f"phase 8 float32 embeddings of {flat.shape[0]} crops, fused "
               f"(kernel) vs folded (plain): min cosine {cos:.7f}")
 
-    embs = torch.stack([embed(c.reshape(-1, *CROP_HW, 3)).reshape(
-        LIVE_S, LIVE_N, -1) for c in crops_all])
-    emitted = {}
-    for lap in ("auction_pallas", "auction"):
-        i_fn, s_fn = make_botsort(BotSortConfig(
+    n_eq = auction_paths_equal(
+        "BoT-SORT", lambda lap: make_botsort(BotSortConfig(
             with_reid=True, emb_dim=LIVE_D, max_tracks=LIVE_K,
-            max_dets=LIVE_N, lap_impl=lap), device="cuda")
-        emitted[lap] = MultiStreamRunner(
-            i_fn, s_fn, LIVE_S, device="cuda", with_embs=True).run(
-                dets_all, masks_all, embs=embs)
-    (ko, km), (po, pm) = emitted["auction_pallas"], emitted["auction"]
-    check(torch.equal(km, pm), "BoT-SORT: kernel and plain auction emit "
-          "different masks")
-    check(torch.equal(ko[km], po[pm]), "BoT-SORT: kernel and plain auction "
-          "emit different ids or boxes")
+            max_dets=LIVE_N, lap_impl=lap), device="cuda"),
+        embed, dets_all, masks_all, crops_all)
     print(f"phase 8 BoT-SORT auction kernel = plain auction on {LIVE_S} "
           f"streams x {EQUAL_T} frames of the same embeddings: identical "
-          f"({int(km.sum())} emissions)")
-
+          f"({n_eq} emissions)")
     plain_embed = make_embed_fn(model, compute_dtype="bfloat16", folded=True,
                                 device="cuda")
-    paths = {}
-    for label, fn in (("kernel", embed), ("plain", plain_embed)):
-        paths[label] = MultiStreamRunner(init, step, LIVE_S, device="cuda",
-                                         embed_fn=fn).run(
-                                             dets_all, masks_all, embs=crops_all)
-    (ko, km), (po, pm) = paths["kernel"], paths["plain"]
-    same = km & pm & (ko[..., 4] == po[..., 4]) & (
-        (ko[..., :4] - po[..., :4]).abs().amax(-1) <= 1e-3)
-    share = int(same.sum()) / max(int(km.sum()), int(pm.sum()), 1)
+    share = emission_share(
+        lambda fn: MultiStreamRunner(init, step, LIVE_S, device="cuda",
+                                     embed_fn=fn),
+        embed, plain_embed, dets_all, masks_all, crops_all)
     print(f"phase 8 live path, kernel vs plain (folded) bf16 embeddings, "
-          f"{LIVE_S} streams x {EQUAL_T} frames: {int(km.sum())} vs "
-          f"{int(pm.sum())} emissions, {100 * share:.2f}% identical")
+          f"{LIVE_S} streams x {EQUAL_T} frames: {share}")
 
-    return {
-        "name": "osblock",
-        "route": "cuda",
-        "source": "motcpp_tpu_torch/csrc/osblock.cu",
-        "replaces": "motcpp_tpu/appearance/osblock_pallas.py:95",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": k_ms,
-        "plain_ms": p_ms,
-        "bound_ms": b_ms,
-        "bound_by": "bytes" if bound_by == {"bytes"} else "operations",
-        "library_ms": None,
-    }
+    return {"model": model, "osblock": block_stats,
+            "osblock_launches": launches[osblock_cuda],
+            "auction_launches": launches[auction_cuda]}
+
+
+def strongsort_phases(model, card):
+    """Phase 11: StrongSORT live ReID (bench.py::bench_livereid) at its
+    deployed priority budget and every frame, through both kernels;
+    ``card`` is nvidia-smi's name and power limit."""
+    from torch.profiler import record_function
+
+    from motcpp_tpu_torch.appearance import osblock_cuda
+    from motcpp_tpu_torch.appearance.reid import make_embed_fn
+    from motcpp_tpu_torch.data import synth_stream_dets
+    from motcpp_tpu_torch.models.strongsort import (
+        StrongSortConfig,
+        make_strongsort,
+    )
+    from motcpp_tpu_torch.ops import auction_cuda
+    from motcpp_tpu_torch.parallel.streams import MultiStreamRunner
+
+    embed = make_embed_fn(model, compute_dtype="bfloat16", fused=True,
+                          device="cuda")
+    last = []
+
+    def embed_fn(crops):
+        with record_function("osnet"):
+            e = embed(crops)
+        last[:] = [e]
+        return e
+
+    def make(n, lap="auction_pallas"):
+        return make_strongsort(StrongSortConfig(
+            n_init=1, gallery_cap=16, emb_dim=LIVE_D, max_tracks=LIVE_K,
+            max_dets=n, lap_impl=lap), device="cuda")
+
+    counters = (osblock_cuda, auction_cuda)
+    want = {osblock_cuda: 6 * LIVE_T, auction_cuda: 2 * LIVE_T}
+    launches = {m: 0 for m in counters}
+    budget = round(PRIORITY * LIVE_S * PRIORITY_N)
+    result = {}
+    for label, n, bud in (("priority 0.6", PRIORITY_N, budget),
+                          ("every frame", LIVE_N, None)):
+        dets_np, masks_np = synth_stream_dets(np.random.default_rng(0),
+                                              EQUAL_T, LIVE_S, n,
+                                              n_obj=LIVE_OBJ)
+        dets_all = torch.from_numpy(dets_np).cuda()
+        masks_all = torch.from_numpy(masks_np).cuda()
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        crops0 = torch.randint(0, 256, (LIVE_S, n, *CROP_HW, 3),
+                               dtype=torch.uint8, device="cuda", generator=gen)
+        crops_all = torch.stack([torch.roll(crops0, t, 0)
+                                 for t in range(EQUAL_T)])
+        del crops0
+        dets, masks, crops = (dets_all[:LIVE_T], masks_all[:LIVE_T],
+                              crops_all[:LIVE_T])
+        init, step = make(n)
+
+        def runner_for(fn):
+            return MultiStreamRunner(init, step, LIVE_S, device="cuda",
+                                     embed_fn=fn, crop_budget=bud,
+                                     emb_priority=bud is not None)
+
+        for m in counters:
+            m.LAUNCHES = 0
+        run_s, times, outs, out_masks = timed_runs(
+            runner_for(embed_fn), dets, masks, crops, counters, want)
+        for m in counters:
+            launches[m] += m.LAUNCHES
+        emitted = check_live_outputs(f"StrongSORT {label}", last[0], outs,
+                                     out_masks)
+        per_frame = bud or LIVE_S * n
+        valid = int(masks.sum()) / LIVE_T
+        fps = LIVE_S * LIVE_T / run_s
+        print(f"phase 11 StrongSORT live ReID {label}: S={LIVE_S} N={n} "
+              f"K={LIVE_K} D={LIVE_D} n_init=1 gallery_cap=16 osnet_x1_0 bf16 "
+              f"{CROP_HW[0]}x{CROP_HW[1]} T={LIVE_T}"
+              + (f" budget={bud}" if bud else "")
+              + f": {run_s * 1e3 / LIVE_T:.3f} ms per frame-batch (median of "
+              f"{REPEATS}, runs {[round(t * 1e3, 1) for t in times]} ms), "
+              f"{fps / 30:.2f} streams at 30 FPS, "
+              f"{per_frame * LIVE_T / run_s:.0f} crops/s ({per_frame} per "
+              f"frame, {valid:.0f} valid on average), {emitted} emissions in "
+              f"the last run, launches per run: OSBlock {want[osblock_cuda]}, "
+              f"auction {want[auction_cuda]}; card: {card}")
+        if bud is None:
+            continue
+        result["osblock"] = osblock_on_path(11, runner_for(embed), dets, masks,
+                                            crops)
+        print(f"phase 11 profile: "
+              f"{profile_live_frame(runner_for(embed_fn), dets, masks, crops)}")
+        n_eq = auction_paths_equal(
+            "StrongSORT", lambda lap: make(n, lap), embed, dets_all,
+            masks_all, crops_all)
+        print(f"phase 11 StrongSORT auction kernel = plain auction on {LIVE_S}"
+              f" streams x {EQUAL_T} frames of the same embeddings: identical "
+              f"({n_eq} emissions)")
+        plain_embed = make_embed_fn(model, compute_dtype="bfloat16",
+                                    folded=True, device="cuda")
+        share = emission_share(runner_for, embed, plain_embed, dets_all,
+                               masks_all, crops_all)
+        print(f"phase 11 live path at the priority budget, kernel vs plain "
+              f"(folded) bf16 embeddings, {LIVE_S} streams x {EQUAL_T} frames:"
+              f" {share}")
+        del dets_all, masks_all, crops_all, crops
+    result.update(osblock_launches=launches[osblock_cuda],
+                  auction_launches=launches[auction_cuda])
+    return result
 
 
 def main(argv=None):

@@ -38,7 +38,7 @@ from motcpp_tpu_torch.data import (
 from motcpp_tpu_torch.data.mot17 import imread
 
 #: ported trackers that take ReID weights
-REID_TRACKERS = ("botsort",)
+REID_TRACKERS = ("strongsort", "botsort")
 
 
 def build_tracker(name: str, fps: int = 30, reid_weights: str = "",
@@ -55,7 +55,9 @@ def build_tracker(name: str, fps: int = 30, reid_weights: str = "",
     if name == "bytetrack":
         defaults = dict(frame_rate=fps)
     if reid_weights and name in REID_TRACKERS:
-        defaults.update(reid_weights=reid_weights, with_reid=True)
+        defaults["reid_weights"] = reid_weights
+        if name == "botsort":  # the trackers with a with_reid switch
+            defaults["with_reid"] = True
     defaults.update(overrides)
     return motcpp_tpu_torch.create_tracker(name, device=device, **defaults)
 

@@ -1,7 +1,7 @@
 """Tracker registry: ``registry`` maps tracker names to wrapper classes.
 
-Counterpart of ``motcpp_tpu/models/__init__.py``. ByteTrack and BoT-SORT
-are ported so far.
+Counterpart of ``motcpp_tpu/models/__init__.py``. Ported so far: SORT,
+ByteTrack, OC-SORT, StrongSORT and BoT-SORT.
 """
 
 registry: dict = {}
@@ -17,4 +17,10 @@ def register(name: str):
 
 def _load_all():
     """Import the ported tracker modules so the registry is filled."""
-    from motcpp_tpu_torch.models import botsort, bytetrack  # noqa: F401
+    from motcpp_tpu_torch.models import (  # noqa: F401
+        botsort,
+        bytetrack,
+        ocsort,
+        sort,
+        strongsort,
+    )

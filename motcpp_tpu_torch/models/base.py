@@ -45,9 +45,11 @@ class BaseTrackerWrapper:
     """Tracker with the reference's public contract.
 
     Input (reference: src/tracker.cpp:108-125): dets is (n, 6) AABB
-    ``[x1, y1, x2, y2, conf, cls]`` (7 columns, OBB, is rejected by the
-    trackers that are ported so far); embs is (n, E) or None.
-    Output: (M, 8) ``[x1, y1, x2, y2, id, conf, cls, det_ind]``.
+    ``[x1, y1, x2, y2, conf, cls]`` or (n, 7) OBB
+    ``[cx, cy, w, h, angle, conf, cls]``; the first frame with
+    detections sets ``is_obb`` (tracker.cpp:174-183), and each tracker
+    reads the columns as its JAX counterpart does. embs is (n, E) or
+    None. Output: (M, 8) ``[x1, y1, x2, y2, id, conf, cls, det_ind]``.
     """
 
     DET_COLS = 6
@@ -59,6 +61,8 @@ class BaseTrackerWrapper:
         self.frame_width = 0
         self.frame_height = 0
         self._first_frame_processed = False
+        self._first_dets_processed = False
+        self.is_obb = False
         self._state = None
 
     def update(self, dets: np.ndarray, img: np.ndarray | None = None,
@@ -70,12 +74,9 @@ class BaseTrackerWrapper:
         appearance features."""
         dets = np.asarray(dets, np.float32)
         if dets.size == 0:
-            dets = dets.reshape(0, self.DET_COLS)
+            dets = dets.reshape(0, 7 if self.is_obb else self.DET_COLS)
         self._check_inputs(dets, img, embs)
-        if not self._first_frame_processed and img is not None:
-            self.frame_height = int(img.shape[0])
-            self.frame_width = int(img.shape[1])
-            self._first_frame_processed = True
+        self._setup_first_frame(dets, img)
 
         n = dets.shape[0]
         padded = torch.from_numpy(pad_rows(dets, self.max_dets))
@@ -110,17 +111,27 @@ class BaseTrackerWrapper:
         counters; ids here are per instance, as in the JAX package)."""
         self._state = None
         self._first_frame_processed = False
+        self._first_dets_processed = False
 
     def _check_inputs(self, dets, img, embs):
         if dets.ndim != 2 or dets.shape[1] not in (6, 7):
             raise ValueError("Detections must have 6 (AABB) or 7 (OBB) columns")
-        if dets.shape[1] == 7:
-            raise ValueError("OBB detections are not supported by this tracker")
         if embs is not None and np.asarray(embs).size > 0:
             if dets.shape[0] != np.asarray(embs).shape[0]:
                 raise ValueError(
                     "Detections and embeddings must have same number of rows"
                 )
+
+    def _setup_first_frame(self, dets, img):
+        """Frame size from the first image (tracker.cpp:166-172) and the
+        detection format from the first detections (tracker.cpp:174-183)."""
+        if not self._first_frame_processed and img is not None:
+            self.frame_height = int(img.shape[0])
+            self.frame_width = int(img.shape[1])
+            self._first_frame_processed = True
+        if not self._first_dets_processed and dets.size > 0:
+            self.is_obb = dets.shape[1] == 7
+            self._first_dets_processed = True
 
     def _compute_warp(self, img, dets):
         """Camera-motion warp hook: trackers with camera-motion
@@ -132,28 +143,3 @@ class BaseTrackerWrapper:
 
     def _step(self, state, dets, det_mask, embs, warp):
         raise NotImplementedError
-
-
-def birth_slots(free, cand, K):
-    """Allocate candidate dets (S, N) to free slots (S, K) in detection
-    order; returns births (S, K), det_idx (S, K) and slot rank (S, K)."""
-    S, N = cand.shape
-    det_rank = torch.cumsum(cand.to(torch.int32), 1, dtype=torch.int32) - 1
-    slot_rank = torch.cumsum(free.to(torch.int32), 1, dtype=torch.int32) - 1
-    n_cand = cand.sum(1, dtype=torch.int32)
-    # scatter det index by rank; ranks >= K (when N > K) and
-    # non-candidates land in the extra slot K, which is dropped
-    pos_by_rank = torch.full((S, K + 1), N, dtype=torch.int32,
-                             device=cand.device)
-    rank_idx = torch.where(cand & (det_rank < K), det_rank, K).long()
-    det_ids = torch.arange(N, dtype=torch.int32, device=cand.device)
-    pos_by_rank.scatter_(1, rank_idx, det_ids.expand(S, N))
-    births = free & (slot_rank < n_cand[:, None])
-    det_idx = torch.where(
-        births, pos_by_rank.gather(1, slot_rank.clamp(0, K - 1).long()), 0)
-    return births, det_idx, slot_rank
-
-
-def gather_rows(rows, idx):
-    """rows (S, N, D) gathered at idx (S, K) -> (S, K, D)."""
-    return rows.gather(1, idx.long()[..., None].expand(-1, -1, rows.shape[-1]))

@@ -21,16 +21,13 @@ import torch
 
 from motcpp_tpu_torch.device import resolve_device
 from motcpp_tpu_torch.models import register
-from motcpp_tpu_torch.models.base import (
-    BaseTrackerWrapper,
-    birth_slots,
-    gather_rows,
-)
+from motcpp_tpu_torch.models.base import BaseTrackerWrapper
 from motcpp_tpu_torch.ops import boxes
 from motcpp_tpu_torch.ops.iou import iou_batch
 from motcpp_tpu_torch.ops.kalman.gaussian import kf_xyah
 from motcpp_tpu_torch.ops.lap import solve_lap_masked
 from motcpp_tpu_torch.ops.matching import fuse_score
+from motcpp_tpu_torch.ops.select import birth_slots, gather_rows
 
 FREE = 0
 TRACKED = 1
@@ -209,7 +206,7 @@ def make_bytetrack(cfg: ByteTrackConfig, device="cuda"):
         # ================= births =======================================
         newt = rem_high & (c2r3 < 0) & (det_conf >= cfg.track_thresh)
         free = tstate == FREE
-        births, bdet, slot_rank = birth_slots(free, newt, K)
+        births, bdet, slot_rank = birth_slots(free, newt)
         brows = gather_rows(dets, bdet)
         bmean, bcov = kf_xyah.initiate(boxes.xyxy2xyah(brows[..., :4]))
         mean = torch.where(births[..., None], bmean, mean)

@@ -2,12 +2,12 @@
 over frames.
 
 Counterpart of ``motcpp_tpu/parallel/streams.py`` (``make_rollout``,
-``make_rollout_embs``, ``make_rollout_general`` and the single-device
-``MultiStreamRunner``). The step already takes every stream at once (a
-leading S dimension), so a rollout is a Python loop over the T frames,
-where the JAX package scans. With an ``embed_fn`` the embedding leg is
-live ReID: the rollout takes raw uint8 crops and runs the CNN over each
-frame's crops before the tracker step.
+``make_rollout_embs``, ``make_rollout_general``, ``embedding_priority``
+and the single-device ``MultiStreamRunner``). The step already takes
+every stream at once (a leading S dimension), so a rollout is a Python
+loop over the T frames, where the JAX package scans. With an
+``embed_fn`` the embedding leg is live ReID: the rollout takes raw uint8
+crops and runs the CNN over each frame's crops before the tracker step.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ from typing import Callable
 import torch
 
 from motcpp_tpu_torch.device import resolve_device
+from motcpp_tpu_torch.ops.iou import iou_batch
 
 
 def make_rollout(step_fn: Callable):
@@ -32,12 +33,55 @@ def make_rollout_embs(step_fn: Callable):
     return make_rollout_general(step_fn, with_embs=True)
 
 
+def _wrap_int32(v):
+    """int64 values reduced to int32 two's complement, as int32
+    arithmetic wraps."""
+    return torch.remainder(v + 2 ** 31, 2 ** 32) - 2 ** 31
+
+
+def embedding_priority(d, m, pd, pm, t, rot: int = 8):
+    """Embedding priority per detection slot (S, N): which crops deserve
+    the CNN budget this frame (JAX ``parallel/streams.py:68-113``).
+
+        2 * novelty + crowding + rotation + tie
+
+    novelty is 1 - the max IoU against the previous frame's valid dets
+    of the stream (1 when there are none), crowding the max IoU against
+    the frame's other valid dets, rotation 1 where the box's grid cell
+    hashes onto this frame's refresh slot ((cell + t) % rot == 0), and
+    tie a small frame-varying jitter. The cell is built from the box's
+    corner and the tie term is computed in int32 with wraparound, then
+    floor-modded as the JAX package does: it decides which equal
+    priorities fill the budget.
+
+    d (S, N, >= 5) dets, m (S, N) valid, pd / pm the previous frame's,
+    t the frame index (an int).
+    """
+    iou_prev = torch.where(pm[:, None, :], iou_batch(d[..., :4], pd[..., :4]),
+                           0.0)
+    novelty = 1.0 - iou_prev.amax(-1)
+    novelty = torch.where(pm.any(-1)[:, None], novelty, 1.0)
+    N = d.shape[1]
+    eye = torch.eye(N, dtype=torch.bool, device=d.device)
+    iou_self = torch.where(m[:, None, :] & ~eye,
+                           iou_batch(d[..., :4], d[..., :4]), 0.0)
+    crowd = iou_self.amax(-1)
+    cell = (torch.round(d[..., 0] / 40.0)
+            + torch.round(d[..., 1] / 40.0)).to(torch.int64)
+    rotation = (torch.remainder(_wrap_int32(cell + t), rot) == 0).to(
+        torch.float32)
+    tie = torch.remainder(_wrap_int32(cell * 92837111 + t * 40499), 1021)
+    tie = tie.to(torch.float32) * (0.01 / 1021.0)
+    return 2.0 * novelty + crowd + rotation + tie
+
+
 def make_rollout_general(step_fn: Callable, with_embs: bool = False,
                          with_warps: bool = False,
                          embed_fn: Callable | None = None,
                          crop_budget: int | None = None,
                          emb_cadence: int | None = None,
                          emb_priority: bool = False,
+                         priority_rot: int = 8,
                          cmc_fn: Callable | None = None):
     """Rollout with optional embedding (T, S, N, D), camera-warp
     (T, S, 2, 3) and raw-crop legs:
@@ -48,7 +92,9 @@ def make_rollout_general(step_fn: Callable, with_embs: bool = False,
     leg takes raw uint8 crops (T, S, N, Hc, Wc, 3) and each frame runs
     the CNN over its crops (appearance/reid.py::embed_valid_crops) before
     the tracker step. ``crop_budget`` caps the CNN batch per frame at the
-    highest-confidence valid crops.
+    highest-confidence valid crops, or with ``emb_priority`` at the
+    crops of highest :func:`embedding_priority` (``priority_rot`` is its
+    rotation period).
 
     ``emb_cadence=k`` > 1: stream s embeds only on frames where
     ``(frame + s) % k == 0``; between refreshes a detection carries a
@@ -59,10 +105,14 @@ def make_rollout_general(step_fn: Callable, with_embs: bool = False,
 
         rollout(states, frame0, stream_ids, dets, masks, crops[, warps])
 
-    ``emb_priority`` and ``cmc_fn`` are not ported yet and raise.
+    With ``emb_priority`` the rollout takes the same, and after
+    stream_ids the previous frame's dets (S, N, C) and mask (S, N) (a
+    zero mask: no previous observations); it returns
+    ``((states, (dets, mask) of its last frame), outs)`` so the novelty
+    baseline carries across calls.
+
+    ``cmc_fn`` is not ported yet and raises.
     """
-    if emb_priority:
-        raise NotImplementedError("emb_priority is not ported yet")
     if cmc_fn is not None:
         raise NotImplementedError("cmc_fn (live camera motion) is not ported yet")
     if crop_budget is not None and embed_fn is None:
@@ -74,20 +124,33 @@ def make_rollout_general(step_fn: Callable, with_embs: bool = False,
             raise ValueError(f"emb_cadence must be >= 1, got {emb_cadence}")
     with_embs = with_embs or embed_fn is not None
     k_cad = int(emb_cadence) if emb_cadence is not None else 1
+    if emb_priority:
+        if crop_budget is None:
+            raise ValueError(
+                "emb_priority needs crop_budget (it chooses which crops "
+                "fill the budget)")
+        if k_cad > 1:
+            raise ValueError(
+                "emb_priority replaces emb_cadence (its rotation term "
+                "subsumes the cadence refresh); set one or the other")
 
-    def _embed(crops, d, m, t, stream_ids):
+    def _embed(crops, d, m, t, stream_ids, prev):
         from motcpp_tpu_torch.appearance.reid import embed_valid_crops
 
         budget = crop_budget
-        if k_cad > 1:
+        priority = None
+        if emb_priority:
+            priority = embedding_priority(d, m, *prev, t, rot=priority_rot)
+        elif k_cad > 1:
             S, N = m.shape
             gate = ((t + stream_ids) % k_cad) == 0  # (S,)
             m = m & gate[:, None]
             auto = -(-S // k_cad) * N  # at most ceil(S/k) streams gated
             budget = min(budget, auto) if budget is not None else auto
-        return embed_valid_crops(embed_fn, crops, d, m, budget=budget)
+        return embed_valid_crops(embed_fn, crops, d, m, budget=budget,
+                                 priority=priority)
 
-    def run_frames(states, dets, masks, extra, frame0, stream_ids):
+    def run_frames(states, dets, masks, extra, frame0, stream_ids, prev=None):
         outs, out_masks = [], []
         for t in range(dets.shape[0]):
             d, m = dets[t], masks[t]
@@ -96,8 +159,9 @@ def make_rollout_general(step_fn: Callable, with_embs: bool = False,
             if with_embs:
                 e = rest.pop(0)
                 if embed_fn is not None:
-                    e = _embed(e, d, m, frame0 + t, stream_ids)
+                    e = _embed(e, d, m, frame0 + t, stream_ids, prev)
                 args.append(e)
+            prev = (d, m)
             if with_warps:
                 if not with_embs:
                     args.append(None)
@@ -105,14 +169,26 @@ def make_rollout_general(step_fn: Callable, with_embs: bool = False,
             states, (out, out_mask) = step_fn(states, *args)
             outs.append(out)
             out_masks.append(out_mask)
-        return states, (torch.stack(outs), torch.stack(out_masks))
+        return states, (torch.stack(outs), torch.stack(out_masks)), prev
 
     def rollout(states, dets, masks, *extra):
-        return run_frames(states, dets, masks, extra, 0, None)
+        states, outs, _ = run_frames(states, dets, masks, extra, 0, None)
+        return states, outs
 
     def rollout_cadence(states, frame0, stream_ids, dets, masks, *extra):
-        return run_frames(states, dets, masks, extra, int(frame0), stream_ids)
+        states, outs, _ = run_frames(states, dets, masks, extra, int(frame0),
+                                     stream_ids)
+        return states, outs
 
+    def rollout_priority(states, frame0, stream_ids, prev_dets, prev_masks,
+                         dets, masks, *extra):
+        states, outs, prev = run_frames(states, dets, masks, extra,
+                                        int(frame0), stream_ids,
+                                        (prev_dets, prev_masks))
+        return (states, prev), outs
+
+    if emb_priority:
+        return rollout_priority
     return rollout_cadence if k_cad > 1 else rollout
 
 
@@ -131,10 +207,12 @@ class MultiStreamRunner:
     Live ReID (appearance/reid.py::make_embed_fn): with ``embed_fn``
     run() takes raw uint8 crops (T, S, N, Hc, Wc, 3) as ``embs`` and
     the CNN runs per frame; ``crop_budget`` caps the crops embedded per
-    frame and ``emb_cadence=k`` embeds each stream every k-th frame,
-    staggered by stream, with the phase carried across run() calls. The
-    state carries across ``run()`` calls until ``reset()``.
-    ``emb_priority`` and ``cmc_fn`` are not ported yet and raise.
+    frame, ``emb_priority`` fills that budget by
+    :func:`embedding_priority` (the previous frame's detections carried
+    across run() calls) and ``emb_cadence=k`` embeds each stream every
+    k-th frame, staggered by stream, with the phase carried across run()
+    calls. The state carries across ``run()`` calls until ``reset()``.
+    ``cmc_fn`` is not ported yet and raises.
     """
 
     def __init__(self, init_fn: Callable, step_fn: Callable, n_streams: int,
@@ -142,19 +220,23 @@ class MultiStreamRunner:
                  with_warps: bool = False, embed_fn: Callable | None = None,
                  crop_budget: int | None = None,
                  emb_cadence: int | None = None, emb_priority: bool = False,
-                 cmc_fn: Callable | None = None):
+                 priority_rot: int = 8, cmc_fn: Callable | None = None):
         self.n_streams = int(n_streams)
         self.device = resolve_device(device)
         self.with_embs = bool(with_embs) or embed_fn is not None
         self.with_warps = bool(with_warps)
         self.emb_cadence = int(emb_cadence) if emb_cadence else 1
-        self._use_cadence = self.emb_cadence > 1
+        self.emb_priority = bool(emb_priority)
+        # cadence and priority share the frame phase (frame0, stream ids)
+        self._use_phase = self.emb_cadence > 1 or self.emb_priority
         self._init_fn = init_fn
         self._rollout = make_rollout_general(
             step_fn, with_embs=self.with_embs, with_warps=self.with_warps,
             embed_fn=embed_fn, crop_budget=crop_budget,
-            emb_cadence=emb_cadence, emb_priority=emb_priority, cmc_fn=cmc_fn)
+            emb_cadence=emb_cadence, emb_priority=self.emb_priority,
+            priority_rot=priority_rot, cmc_fn=cmc_fn)
         self._frame0 = 0
+        self._prev_dets = None  # priority mode: (dets, mask) of the last frame
         self._states = None
 
     def init_states(self):
@@ -167,16 +249,17 @@ class MultiStreamRunner:
         required iff the runner was built with embeddings; warps
         (T, S, 2, 3) iff with_warps. Without ``states`` the call
         continues from the carried state (and cadence phase) and updates
-        them; with ``states`` it is pure: the carried state and phase
-        are left as they were, and the cadence phase is ``frame0``
-        (default 0)."""
+        them; with ``states`` it is pure: the carried state, phase and
+        previous detections are left as they were, the phase is
+        ``frame0`` (default 0) and, under ``emb_priority``, every
+        detection counts as novel on the first frame."""
         if (embs is not None) != self.with_embs:
             raise ValueError(
                 "pass embs iff the runner was built with embeddings")
         if (warps is not None) != self.with_warps:
             raise ValueError(
                 "pass warps iff the runner was built with with_warps=True")
-        if frame0 is not None and not self._use_cadence:
+        if frame0 is not None and not self._use_phase:
             raise ValueError("frame0 only applies with emb_cadence set")
         dets = torch.as_tensor(dets, dtype=torch.float32, device=self.device)
         masks = torch.as_tensor(masks, dtype=torch.bool, device=self.device)
@@ -213,12 +296,23 @@ class MultiStreamRunner:
             states = self._states
         else:
             states = self.init_states()
-        if self._use_cadence:
+        if self._use_phase:
             f0 = int(frame0 or 0) if stateless else self._frame0
             ids = torch.arange(self.n_streams, device=self.device)
-            states, outs = self._rollout(states, f0, ids, dets, masks, *extra)
+            lead = (f0, ids)
+            if self.emb_priority:
+                prev = None if stateless else self._prev_dets
+                if prev is None:  # no previous observations: all novel
+                    prev = (torch.zeros_like(dets[0]),
+                            torch.zeros_like(masks[0]))
+                lead += prev
+            states, outs = self._rollout(states, *lead, dets, masks, *extra)
+            if self.emb_priority:
+                states, prev = states
             if not stateless:
                 self._frame0 += dets.shape[0]
+                if self.emb_priority:
+                    self._prev_dets = prev
         else:
             states, outs = self._rollout(states, dets, masks, *extra)
         if not stateless:
@@ -240,3 +334,4 @@ class MultiStreamRunner:
     def reset(self):
         self._states = None
         self._frame0 = 0
+        self._prev_dets = None

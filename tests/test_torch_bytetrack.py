@@ -201,6 +201,6 @@ def test_wrapper_rejects_bad_input():
 
 def test_create_tracker_names():
     with pytest.raises(ValueError, match="not ported"):
-        create_tracker("sort", device="cpu")
+        create_tracker("deepocsort", device="cpu")
     with pytest.raises(ValueError, match="Unknown"):
         create_tracker("bogus", device="cpu")

@@ -1,5 +1,6 @@
 """The CUDA kernels of motcpp_tpu_torch against their plain PyTorch
-versions, on a CUDA device. They skip where there is none.
+versions, and the tracker paths through them against the paths through
+the plain versions, on a CUDA device. They skip where there is none.
 
 This file imports no JAX, so it also runs where JAX is not installed,
 without the suite's conftest (which imports JAX):
@@ -82,6 +83,93 @@ def test_bytetrack_rollout_kernel_path_equals_plain_path(cuda):
             dets, masks)
         launched = auction_cuda.LAUNCHES - before
         assert launched == (2 * T if lap == "auction_pallas" else 0)
+    (ko, km), (po, pm) = outs["auction_pallas"], outs["auction"]
+    assert int(km.sum()) > 0
+    assert torch.equal(km, pm)
+    assert torch.equal(ko[km], po[pm])
+
+
+def rollout_kernel_path_equals_plain_path(cuda, make, launches_per_frame,
+                                          S=64, K=64, N=32, T=30):
+    """A tracker's rollout with the auction kernel and with the plain
+    auction: the kernel launches launches_per_frame times a frame (the
+    plain path never), and both emit the same masks, ids and boxes."""
+    dets, masks = synth_stream_dets(np.random.default_rng(0), T, S, N)
+    outs = {}
+    for lap in ("auction_pallas", "auction"):
+        init, step = make(lap, K, N, cuda)
+        before = auction_cuda.LAUNCHES
+        outs[lap] = MultiStreamRunner(init, step, S, device=cuda).run(
+            dets, masks)
+        launched = auction_cuda.LAUNCHES - before
+        assert launched == (launches_per_frame * T
+                            if lap == "auction_pallas" else 0)
+    (ko, km), (po, pm) = outs["auction_pallas"], outs["auction"]
+    assert int(km.sum()) > 0
+    assert torch.equal(km, pm)
+    assert torch.equal(ko[km], po[pm])
+
+
+def test_sort_rollout_kernel_path_equals_plain_path(cuda):
+    from motcpp_tpu_torch.models.sort import SortConfig, make_sort
+
+    rollout_kernel_path_equals_plain_path(
+        cuda, lambda lap, K, N, dev: make_sort(SortConfig(
+            min_hits=1, max_age=3, max_tracks=K, max_dets=N, lap_impl=lap),
+            device=dev), 1)
+
+
+@pytest.mark.parametrize("use_byte", [False, True], ids=["ocr", "byte"])
+def test_ocsort_rollout_kernel_path_equals_plain_path(cuda, use_byte):
+    from motcpp_tpu_torch.models.ocsort import OCSortConfig, make_ocsort
+
+    rollout_kernel_path_equals_plain_path(
+        cuda, lambda lap, K, N, dev: make_ocsort(OCSortConfig(
+            min_hits=1, use_byte=use_byte, max_tracks=K, max_dets=N,
+            lap_impl=lap), device=dev), 3 if use_byte else 2)
+
+
+def test_strongsort_live_priority_kernel_path_equals_plain_path(cuda):
+    """StrongSORT live ReID at a priority budget below the valid count:
+    OSNet x0_25 with every OSBlock through its kernel (6 launches a
+    frame) and the auction kernel (2 a frame); the plain-auction path is
+    fed the same embeddings, replayed, and emits the same."""
+    from motcpp_tpu_torch.appearance.osnet import init_params, osnet_x0_25
+    from motcpp_tpu_torch.appearance.reid import make_embed_fn
+    from motcpp_tpu_torch.appearance import osblock_cuda
+    from motcpp_tpu_torch.models.strongsort import (
+        StrongSortConfig,
+        make_strongsort,
+    )
+
+    S, N, T, D = 16, 16, 6, 512
+    dets, masks = synth_stream_dets(np.random.default_rng(0), T, S, N, n_obj=10)
+    crops = torch.randint(0, 256, (T, S, N, 64, 32, 3), dtype=torch.uint8,
+                          generator=torch.Generator().manual_seed(0))
+    embed = make_embed_fn(init_params(osnet_x0_25(feature_dim=D), seed=0),
+                          compute_dtype="bfloat16", fused=True, device=cuda)
+    recorded = []
+
+    def record(c):
+        recorded.append(embed(c))
+        return recorded[-1]
+
+    replay = iter(recorded)
+    outs = {}
+    for lap, fn in (("auction_pallas", record),
+                    ("auction", lambda c: next(replay))):
+        init, step = make_strongsort(StrongSortConfig(
+            n_init=1, gallery_cap=16, emb_dim=D, max_tracks=64, max_dets=N,
+            lap_impl=lap), device=cuda)
+        before = (osblock_cuda.LAUNCHES, auction_cuda.LAUNCHES)
+        runner = MultiStreamRunner(init, step, S, device=cuda, embed_fn=fn,
+                                   crop_budget=96, emb_priority=True)
+        outs[lap] = runner.run(dets, masks, embs=crops)
+        launched = (osblock_cuda.LAUNCHES - before[0],
+                    auction_cuda.LAUNCHES - before[1])
+        assert launched == ((6 * T, 2 * T) if lap == "auction_pallas"
+                            else (0, 0))
+    assert int(masks.sum((1, 2)).min()) > 96  # the budget binds
     (ko, km), (po, pm) = outs["auction_pallas"], outs["auction"]
     assert int(km.sum()) > 0
     assert torch.equal(km, pm)

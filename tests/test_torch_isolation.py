@@ -112,6 +112,36 @@ def test_live_reid_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
             MultiStreamRunner(init, step, 2, **kw)
 
 
+@pytest.mark.parametrize("name", ["sort", "strongsort", "ocsort"])
+def test_tracker_entry_points_default_to_cuda_and_raise_without_it(no_cuda,
+                                                                  name):
+    import importlib
+
+    from motcpp_tpu_torch import create_tracker
+    from motcpp_tpu_torch.appearance.osnet import osnet_x0_25
+    from motcpp_tpu_torch.appearance.reid import make_embed_fn
+    from motcpp_tpu_torch.cli import build_tracker
+    from motcpp_tpu_torch.parallel.streams import MultiStreamRunner
+
+    mod = importlib.import_module(f"motcpp_tpu_torch.models.{name}")
+    config = next(getattr(mod, a) for a in dir(mod) if a.endswith("Config"))
+    make = getattr(mod, f"make_{name}")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        create_tracker(name)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_tracker(name)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make(config())
+    init, step = make(config(), device="cpu")
+    embed = make_embed_fn(osnet_x0_25(), device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        MultiStreamRunner(init, step, 2, embed_fn=embed, crop_budget=4,
+                          emb_priority=True)
+    out = create_tracker(name, device="cpu").update(
+        np.array([[10, 10, 50, 90, 0.9, 0]], np.float32))
+    assert out.shape[1] == 8
+
+
 def test_cpu_is_used_only_when_asked(no_cuda):
     from motcpp_tpu_torch import create_tracker
 

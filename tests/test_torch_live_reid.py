@@ -121,10 +121,13 @@ def test_rollout_with_precomputed_embs_equals_live(scene):
 
 def test_runner_rejects_what_is_not_ported(scene):
     init, step = make_botsort(BotSortConfig(**CFG), device="cpu")
-    with pytest.raises(NotImplementedError, match="emb_priority"):
+    with pytest.raises(ValueError, match="emb_priority needs crop_budget"):
+        MultiStreamRunner(init, step, S, device="cpu",
+                          embed_fn=lambda c: c, emb_priority=True)
+    with pytest.raises(ValueError, match="emb_priority replaces emb_cadence"):
         MultiStreamRunner(init, step, S, device="cpu",
                           embed_fn=lambda c: c, crop_budget=4,
-                          emb_priority=True)
+                          emb_priority=True, emb_cadence=2)
     with pytest.raises(NotImplementedError, match="cmc_fn"):
         MultiStreamRunner(init, step, S, device="cpu",
                           cmc_fn=lambda prev, cur: None)

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """On-card smoke run of motcpp_tpu_torch: builds the CUDA kernels from
 the sources in this checkout, holds each against its plain PyTorch
-version, drives the ByteTrack, SORT and OC-SORT multi-stream paths at
-the bench's shapes and the live-ReID BoT-SORT and StrongSORT paths at
-the bench's live-ReID shape, and checks what they emit.
+version, drives the ByteTrack, SORT, OC-SORT, DeepOC-SORT, BoostTrack
+and HybridSORT multi-stream paths at the bench's shapes and the
+live-ReID BoT-SORT, StrongSORT, DeepOC-SORT, BoostTrack and HybridSORT
+paths at the bench's live-ReID shape, and checks what they emit.
 
     python3 chip_smoke.py [--baseline OTHER_AUCTION_CU]
 
@@ -64,21 +65,31 @@ so those compare float32 arithmetic. Phases:
  10. the same for OC-SORT (min_hits=1) at S=2048, bench.py's default,
      two launches a frame (stage 1 and the OCR rematch);
  11. StrongSORT live ReID (n_init=1, gallery_cap=16, osnet_x1_0 bf16
-     fused, 256x128 crops made on the card) at its deployed point
-     (bench.py DEPLOYED --emb-priority 0.6: N=32, a budget of
-     round(0.6*128*32) = 2458 crops filled by embedding priority) and
-     every frame (N=16, 2048 crops), six OSBlock and two auction
-     launches a frame; at the deployed point the OSBlock kernel on the
-     path's own inputs, a profile of one frame, the auction kernel
-     path against the plain auction on the same embeddings, and the
-     share of identical emissions with kernel and plain embeddings.
+     fused, 256x128 crops made on the card, the scene of phase 7) at its
+     deployed point (bench.py DEPLOYED --emb-priority 0.6: N=16, a budget
+     of round(0.6*128*16) = 1229 crops filled by embedding priority, of
+     about 1700 valid crops) and every frame (2048 crops), six OSBlock and
+     two auction launches a frame; at the deployed point both kernels on
+     the path's own inputs beside their plain versions and bounds, a
+     profile of one frame, the auction kernel path against the plain
+     auction on the same embeddings, and the share of identical emissions
+     with kernel and plain embeddings;
+ 12. DeepOC-SORT: motion-only as phase 10 at bench.py's config
+     (min_hits=1, embedding_off, cmc_off), two launches a frame (stage 1
+     and the OCR rematch); live ReID as phase 11 at its deployed cadence
+     8 (embedding_off=False, cmc_off, 256 crops a frame);
+ 13. BoostTrack: motion-only (min_hits=1), one launch a frame; live ReID
+     with with_reid at its deployed cadence 2 (1024 crops a frame);
+ 14. HybridSORT: motion-only (min_hits=1, with_reid=False), three
+     launches a frame (stage 1, BYTE, the rematch); live ReID with
+     with_reid at its deployed priority 0.8 (a budget of 1638 crops).
 
 Any failed check exits nonzero before the result is printed. The last
 line is ``{"ok": true, "device": {...}}``; the line before it is the
 card's name and power limit, and the one before that lists the kernels
 with their times and bounds (those of phases 3 and 7) and their
-launches summed over the main paths of phases 3, 7, 9, 10 and 11, each
-counted from zero.
+launches summed over the main paths of phases 3, 7 and 9-14, each
+counted from zero; before those, the script's wall time.
 """
 
 from __future__ import annotations
@@ -125,10 +136,14 @@ CROP_HW = (256, 128)
 CADENCE = 8
 BLOCK_CHECK_B = 64
 EQUAL_T = 12  # frames of the kernel-path-vs-plain-path live runs
-# StrongSORT's deployed live-ReID point (bench.py DEPLOYED: --emb-priority
-# 0.6): bench_livereid raises N to 32 and embeds round(0.6 * S * N) crops
-PRIORITY, PRIORITY_N = 0.6, 32
-OC_S = 2048  # bench.py's default stream count for OC-SORT
+# the deployed live-ReID points of bench.py DEPLOYED: an embedding cadence
+# or a priority budget. bench_livereid keeps N = LIVE_N (it raises N only
+# for --crop-budget, which DEPLOYED does not pass) and embeds
+# round(p * S * N) crops a frame at a priority p: StrongSORT 1229,
+# HybridSORT 1638, of about 1700 valid crops
+STRONG_PRIORITY, HYBRID_PRIORITY = 0.6, 0.8
+DEEPOC_CADENCE, BOOST_CADENCE = 8, 2
+OC_S = 2048  # bench.py's default stream count (all but SORT and ByteTrack)
 
 
 class SmokeFailure(Exception):
@@ -407,18 +422,77 @@ def run_smoke(baseline=None):
             device="cuda"), smi)
 
     # ---- 11. StrongSORT live ReID at its deployed priority budget --------
-    strong = strongsort_phases(live["model"], smi)
+    from motcpp_tpu_torch.models.boosttrack import (
+        BoostTrackConfig,
+        make_boosttrack,
+    )
+    from motcpp_tpu_torch.models.deepocsort import (
+        DeepOCSortConfig,
+        make_deepocsort,
+    )
+    from motcpp_tpu_torch.models.hybridsort import (
+        HybridSortConfig,
+        make_hybridsort,
+    )
+    from motcpp_tpu_torch.models.strongsort import (
+        StrongSortConfig,
+        make_strongsort,
+    )
 
-    paths = (byte, live, sort, ocsort, strong)
+    def live_make(make, cfg, **kw):
+        """make(lap) of a tracker at the live-ReID shape."""
+        return lambda lap: make(cfg(emb_dim=LIVE_D, max_tracks=LIVE_K,
+                                    max_dets=LIVE_N, lap_impl=lap, **kw),
+                                device="cuda")
+
+    model, scene = live["model"], live.pop("scene")
+    budget = round(STRONG_PRIORITY * LIVE_S * LIVE_N)
+    strong = live_tracker_phases(
+        11, "StrongSORT", live_make(make_strongsort, StrongSortConfig,
+                                    n_init=1, gallery_cap=16),
+        ("stage A", "stage B"), model, scene, smi,
+        [(f"priority {STRONG_PRIORITY}", None, budget),
+         ("every frame", None, None)])
+
+    # ---- 12-14. DeepOC-SORT, BoostTrack and HybridSORT: motion-only at
+    #      bench.py's configs (bench.py:96-134), live ReID at DEPLOYED -----
+    paths = {"ByteTrack": byte, "BoT-SORT live": live, "SORT": sort,
+             "OC-SORT": ocsort, "StrongSORT live": strong}
+    trackers = (
+        (12, "DeepOC-SORT", ("stage 1", "OCR"), make_deepocsort,
+         DeepOCSortConfig, dict(embedding_off=True, cmc_off=True),
+         dict(embedding_off=False, cmc_off=True),
+         (f"cadence {DEEPOC_CADENCE}", DEEPOC_CADENCE, None)),
+        (13, "BoostTrack", ("stage 1",), make_boosttrack, BoostTrackConfig,
+         {}, dict(with_reid=True),
+         (f"cadence {BOOST_CADENCE}", BOOST_CADENCE, None)),
+        (14, "HybridSORT", ("stage 1", "BYTE", "rematch"), make_hybridsort,
+         HybridSortConfig, dict(with_reid=False), dict(with_reid=True),
+         (f"priority {HYBRID_PRIORITY}", None,
+          round(HYBRID_PRIORITY * LIVE_S * LIVE_N))),
+    )
+    for phase, name, stages, make, cfg, motion_kw, live_kw, point in trackers:
+        paths[name] = tracker_path(
+            (phase, phase), name, OC_S, stages,
+            lambda lap, make=make, cfg=cfg, kw=motion_kw: make(cfg(
+                min_hits=1, max_tracks=K, max_dets=N, lap_impl=lap, **kw),
+                device="cuda"), smi)
+        paths[f"{name} live"] = live_tracker_phases(
+            phase, name, live_make(make, cfg, min_hits=1, **live_kw), stages,
+            model, scene, smi, [point])
+    del scene
+
+    motion = [p for name, p in paths.items() if not name.endswith("live")]
+    live_paths = [p for name, p in paths.items() if name.endswith("live")]
     kernels = [{
         "name": "auction",
         "route": "cuda",
         "source": "motcpp_tpu_torch/csrc/auction.cu",
         "replaces": "motcpp_tpu/ops/auction_pallas.py:66",
-        "launches": sum(p["auction_launches"] for p in paths),
-        # the live paths compare emissions only, not the kernel's output
-        "max_abs_err": max(max_err, byte["auction_err"], sort["auction_err"],
-                           ocsort["auction_err"]),
+        "launches": sum(p["auction_launches"] for p in paths.values()),
+        "max_abs_err": max([max_err] + [p["auction_err"] for p in motion]
+                           + [p["auction"]["auction_err"] for p in live_paths
+                              if "auction" in p]),
         "ms": byte["ms"],
         "plain_ms": byte["plain_ms"],
         "bound_ms": byte["bound_ms"],
@@ -429,17 +503,15 @@ def run_smoke(baseline=None):
         "route": "cuda",
         "source": "motcpp_tpu_torch/csrc/osblock.cu",
         "replaces": "motcpp_tpu/appearance/osblock_pallas.py:95",
-        "launches": live["osblock_launches"] + strong["osblock_launches"],
-        "max_abs_err": max(live["osblock"]["max_err"],
-                           strong["osblock"]["max_err"]),
+        "launches": sum(p["osblock_launches"] for p in live_paths),
+        "max_abs_err": max(p["osblock"]["max_err"] for p in live_paths),
         "ms": live["osblock"]["ms"],
         "plain_ms": live["osblock"]["plain_ms"],
         "bound_ms": live["osblock"]["bound_ms"],
         "bound_by": live["osblock"]["bound_by"],
         "library_ms": None,
     }]
-    for name, p in zip(("ByteTrack", "BoT-SORT live", "SORT", "OC-SORT",
-                        "StrongSORT live"), paths):
+    for name, p in paths.items():
         print(f"launches on the {name} path: auction {p['auction_launches']}"
               + (f", OSBlock {p['osblock_launches']}"
                  if "osblock_launches" in p else ""))
@@ -460,7 +532,7 @@ def tracker_path(phases, label, n_streams, stage_names, make, card,
     args)``, given for ByteTrack, returns the previous auction kernel's
     ms on the stage's inputs and what was timed (see ``baseline_ms``)."""
     from motcpp_tpu_torch.data import synth_stream_dets
-    from motcpp_tpu_torch.ops import auction, auction_cuda
+    from motcpp_tpu_torch.ops import auction_cuda
     from motcpp_tpu_torch.parallel.streams import MultiStreamRunner
 
     phase, eq_phase = phases
@@ -508,6 +580,39 @@ def tracker_path(phases, label, n_streams, stage_names, make, card,
     # the kernel on the inputs the main path gives it, mid-sequence
     runner.reset()
     runner.run(dets[: T // 2], masks[: T // 2])
+    stats = auction_on_path(
+        phase, label, stage_names,
+        lambda: runner.run(dets[T // 2: T // 2 + 1],
+                           masks[T // 2: T // 2 + 1]), card, previous)
+    print(f"phase {phase} {label} profile: "
+          f"{profile_frames(runner, dets, masks)}")
+
+    # kernel path against the plain path
+    d, m = dets[:, :EQUAL_STREAMS], masks[:, :EQUAL_STREAMS]
+    results = {}
+    for lap in ("auction_pallas", "auction"):
+        i_fn, s_fn = make(lap)
+        results[lap] = MultiStreamRunner(i_fn, s_fn, EQUAL_STREAMS,
+                                         device="cuda").run(d, m)
+    (ko, km), (po, pm) = results["auction_pallas"], results["auction"]
+    check(torch.equal(km, pm),
+          f"{label}: kernel and plain paths emit different masks")
+    check(torch.equal(ko[km], po[pm]),
+          f"{label}: kernel and plain paths emit different ids or boxes")
+    print(f"phase {eq_phase} {label} kernel path = plain path on "
+          f"{EQUAL_STREAMS} streams: identical ({int(km.sum())} emissions)")
+    return dict(stats, auction_launches=launches)
+
+
+def auction_on_path(phase, label, stage_names, run_frame, card,
+                    previous=None):
+    """The auction kernel on the inputs a path gives it: ``run_frame()``
+    runs one frame, whose solves (one per stage name) are captured and
+    each timed beside the plain auction and its bound; returns the
+    per-frame sums and the largest difference from the plain auction
+    (which must be 0). ``previous`` is as in ``tracker_path``."""
+    from motcpp_tpu_torch.ops import auction, auction_cuda
+
     captured = []
     solve = auction_cuda.solve
 
@@ -517,11 +622,11 @@ def tracker_path(phases, label, n_streams, stage_names, make, card,
 
     auction_cuda.solve = recording_solve
     try:
-        runner.run(dets[T // 2: T // 2 + 1], masks[T // 2: T // 2 + 1])
+        run_frame()
     finally:
         auction_cuda.solve = solve
-    check(len(captured) == per_frame,
-          f"{label}: captured {len(captured)} solves, want {per_frame}")
+    check(len(captured) == len(stage_names),
+          f"{label}: captured {len(captured)} solves, want {len(stage_names)}")
     k_ms = p_ms = b_ms = 0.0
     bound_by, max_err = set(), 0
     for name, args in zip(stage_names, captured):
@@ -545,25 +650,8 @@ def tracker_path(phases, label, n_streams, stage_names, make, card,
               f"{full_tile_bound_ms(*args):.4f} ms), max abs err {err}")
     print(f"phase {phase} {label} kernel per frame: {k_ms:.4f} ms, plain "
           f"{p_ms:.3f} ms, bound {b_ms:.4f} ms; card: {card}")
-    print(f"phase {phase} {label} profile: "
-          f"{profile_frames(runner, dets, masks)}")
-
-    # kernel path against the plain path
-    d, m = dets[:, :EQUAL_STREAMS], masks[:, :EQUAL_STREAMS]
-    results = {}
-    for lap in ("auction_pallas", "auction"):
-        i_fn, s_fn = make(lap)
-        results[lap] = MultiStreamRunner(i_fn, s_fn, EQUAL_STREAMS,
-                                         device="cuda").run(d, m)
-    (ko, km), (po, pm) = results["auction_pallas"], results["auction"]
-    check(torch.equal(km, pm),
-          f"{label}: kernel and plain paths emit different masks")
-    check(torch.equal(ko[km], po[pm]),
-          f"{label}: kernel and plain paths emit different ids or boxes")
-    print(f"phase {eq_phase} {label} kernel path = plain path on "
-          f"{EQUAL_STREAMS} streams: identical ({int(km.sum())} emissions)")
-    return {"auction_launches": launches, "auction_err": max_err, "ms": k_ms,
-            "plain_ms": p_ms, "bound_ms": b_ms,
+    return {"auction_err": max_err, "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": b_ms,
             "bound_by": "bytes" if bound_by == {"bytes"} else "operations"}
 
 
@@ -952,23 +1040,31 @@ def live_reid_phases(osblock_build, card):
           f"{LIVE_S} streams x {EQUAL_T} frames: {share}")
 
     return {"model": model, "osblock": block_stats,
+            "scene": (dets_all, masks_all, crops_all),
             "osblock_launches": launches[osblock_cuda],
             "auction_launches": launches[auction_cuda]}
 
 
-def strongsort_phases(model, card):
-    """Phase 11: StrongSORT live ReID (bench.py::bench_livereid) at its
-    deployed priority budget and every frame, through both kernels;
-    ``card`` is nvidia-smi's name and power limit."""
+def live_tracker_phases(phase, name, make, stages, model, scene, card,
+                        points):
+    """Phase ``phase``: a tracker's live-ReID path (bench.py::bench_livereid's
+    shape, osnet_x1_0 bf16 fused) through both kernels at each of
+    ``points``, a list of (label, emb_cadence, crop_budget): one warm-up
+    and REPEATS timed run()s of LIVE_T frames, with the kernels' launch
+    counts checked. The first point is the tracker's deployed one
+    (bench.py DEPLOYED); there the OSBlock kernel runs on the path's own
+    inputs, one frame is profiled, the auction kernel path is held
+    against the plain auction on the same embeddings, and the share of
+    identical emissions with the kernel's and the plain version's
+    embeddings is reported, and the auction kernel runs on the path's own
+    inputs. ``make(lap)`` returns (init_fn, step_fn); ``stages`` names
+    the auction launches of a frame; ``scene`` the
+    (dets, masks, crops) of EQUAL_T frames; ``card`` nvidia-smi's name and
+    power limit."""
     from torch.profiler import record_function
 
     from motcpp_tpu_torch.appearance import osblock_cuda
     from motcpp_tpu_torch.appearance.reid import make_embed_fn
-    from motcpp_tpu_torch.data import synth_stream_dets
-    from motcpp_tpu_torch.models.strongsort import (
-        StrongSortConfig,
-        make_strongsort,
-    )
     from motcpp_tpu_torch.ops import auction_cuda
     from motcpp_tpu_torch.parallel.streams import MultiStreamRunner
 
@@ -982,37 +1078,27 @@ def strongsort_phases(model, card):
         last[:] = [e]
         return e
 
-    def make(n, lap="auction_pallas"):
-        return make_strongsort(StrongSortConfig(
-            n_init=1, gallery_cap=16, emb_dim=LIVE_D, max_tracks=LIVE_K,
-            max_dets=n, lap_impl=lap), device="cuda")
-
+    dets_all, masks_all, crops_all = scene
+    dets, masks, crops = (dets_all[:LIVE_T], masks_all[:LIVE_T],
+                          crops_all[:LIVE_T])
+    valid = masks.sum((1, 2))
+    init, step = make("auction_pallas")
     counters = (osblock_cuda, auction_cuda)
-    want = {osblock_cuda: 6 * LIVE_T, auction_cuda: 2 * LIVE_T}
+    want = {osblock_cuda: 6 * LIVE_T, auction_cuda: len(stages) * LIVE_T}
     launches = {m: 0 for m in counters}
-    budget = round(PRIORITY * LIVE_S * PRIORITY_N)
     result = {}
-    for label, n, bud in (("priority 0.6", PRIORITY_N, budget),
-                          ("every frame", LIVE_N, None)):
-        dets_np, masks_np = synth_stream_dets(np.random.default_rng(0),
-                                              EQUAL_T, LIVE_S, n,
-                                              n_obj=LIVE_OBJ)
-        dets_all = torch.from_numpy(dets_np).cuda()
-        masks_all = torch.from_numpy(masks_np).cuda()
-        gen = torch.Generator(device="cuda").manual_seed(0)
-        crops0 = torch.randint(0, 256, (LIVE_S, n, *CROP_HW, 3),
-                               dtype=torch.uint8, device="cuda", generator=gen)
-        crops_all = torch.stack([torch.roll(crops0, t, 0)
-                                 for t in range(EQUAL_T)])
-        del crops0
-        dets, masks, crops = (dets_all[:LIVE_T], masks_all[:LIVE_T],
-                              crops_all[:LIVE_T])
-        init, step = make(n)
+    for i, (label, cadence, budget) in enumerate(points):
+        # a priority budget that every frame's valid crops exceed, or the
+        # priority only orders crops and never chooses among them
+        check(budget is None or int(valid.min()) > budget,
+              f"{name} {label}: budget {budget} does not bind "
+              f"(fewest valid crops {int(valid.min())})")
 
-        def runner_for(fn):
+        def runner_for(fn, cadence=cadence, budget=budget):
             return MultiStreamRunner(init, step, LIVE_S, device="cuda",
-                                     embed_fn=fn, crop_budget=bud,
-                                     emb_priority=bud is not None)
+                                     embed_fn=fn, crop_budget=budget,
+                                     emb_cadence=cadence,
+                                     emb_priority=budget is not None)
 
         for m in counters:
             m.LAUNCHES = 0
@@ -1020,42 +1106,51 @@ def strongsort_phases(model, card):
             runner_for(embed_fn), dets, masks, crops, counters, want)
         for m in counters:
             launches[m] += m.LAUNCHES
-        emitted = check_live_outputs(f"StrongSORT {label}", last[0], outs,
+        emitted = check_live_outputs(f"{name} {label}", last[0], outs,
                                      out_masks)
-        per_frame = bud or LIVE_S * n
-        valid = int(masks.sum()) / LIVE_T
+        if budget is not None:
+            per_crops = budget
+            load = (f" budget={budget} of {float(valid.float().mean()):.0f} "
+                    f"valid crops a frame on average (fewest "
+                    f"{int(valid.min())})")
+        else:
+            per_crops = -(-LIVE_S // (cadence or 1)) * LIVE_N
+            load = ""
         fps = LIVE_S * LIVE_T / run_s
-        print(f"phase 11 StrongSORT live ReID {label}: S={LIVE_S} N={n} "
-              f"K={LIVE_K} D={LIVE_D} n_init=1 gallery_cap=16 osnet_x1_0 bf16 "
-              f"{CROP_HW[0]}x{CROP_HW[1]} T={LIVE_T}"
-              + (f" budget={bud}" if bud else "")
-              + f": {run_s * 1e3 / LIVE_T:.3f} ms per frame-batch (median of "
-              f"{REPEATS}, runs {[round(t * 1e3, 1) for t in times]} ms), "
-              f"{fps / 30:.2f} streams at 30 FPS, "
-              f"{per_frame * LIVE_T / run_s:.0f} crops/s ({per_frame} per "
-              f"frame, {valid:.0f} valid on average), {emitted} emissions in "
-              f"the last run, launches per run: OSBlock {want[osblock_cuda]}, "
-              f"auction {want[auction_cuda]}; card: {card}")
-        if bud is None:
+        print(f"phase {phase} {name} live ReID {label}: S={LIVE_S} N={LIVE_N} "
+              f"K={LIVE_K} D={LIVE_D} osnet_x1_0 bf16 "
+              f"{CROP_HW[0]}x{CROP_HW[1]} T={LIVE_T}{load}: "
+              f"{run_s * 1e3 / LIVE_T:.3f} ms per frame-batch (median of "
+              f"{REPEATS}, runs "
+              f"{[round(t * 1e3, 1) for t in times]} ms), {fps / 30:.2f} "
+              f"streams at 30 FPS, {per_crops * LIVE_T / run_s:.0f} crops/s "
+              f"({per_crops} per frame), {emitted} emissions in the last run, "
+              f"launches per run: OSBlock {want[osblock_cuda]}, auction "
+              f"{want[auction_cuda]}; card: {card}")
+        if i:
             continue
-        result["osblock"] = osblock_on_path(11, runner_for(embed), dets, masks,
-                                            crops)
-        print(f"phase 11 profile: "
-              f"{profile_live_frame(runner_for(embed_fn), dets, masks, crops)}")
-        n_eq = auction_paths_equal(
-            "StrongSORT", lambda lap: make(n, lap), embed, dets_all,
-            masks_all, crops_all)
-        print(f"phase 11 StrongSORT auction kernel = plain auction on {LIVE_S}"
-              f" streams x {EQUAL_T} frames of the same embeddings: identical "
-              f"({n_eq} emissions)")
+        result["osblock"] = osblock_on_path(phase, runner_for(embed), dets,
+                                            masks, crops)
+        runner = runner_for(embed)
+        runner.run(dets[:2], masks[:2], embs=crops[:2])
+        result["auction"] = auction_on_path(
+            phase, f"{name} live", stages,
+            lambda: runner.run(dets[2:3], masks[2:3], embs=crops[2:3]), card)
+        print(f"phase {phase} {name} profile: "
+              f"{profile_live_frame(runner_for(embed_fn), dets, masks, crops)}"
+              f"; card: {card}")
+        n_eq = auction_paths_equal(name, make, embed, dets_all, masks_all,
+                                   crops_all)
+        print(f"phase {phase} {name} auction kernel = plain auction on "
+              f"{LIVE_S} streams x {EQUAL_T} frames of the same embeddings: "
+              f"identical ({n_eq} emissions)")
         plain_embed = make_embed_fn(model, compute_dtype="bfloat16",
                                     folded=True, device="cuda")
         share = emission_share(runner_for, embed, plain_embed, dets_all,
                                masks_all, crops_all)
-        print(f"phase 11 live path at the priority budget, kernel vs plain "
-              f"(folded) bf16 embeddings, {LIVE_S} streams x {EQUAL_T} frames:"
-              f" {share}")
-        del dets_all, masks_all, crops_all, crops
+        print(f"phase {phase} {name} live path at {label}, kernel vs plain "
+              f"(folded) bf16 embeddings, {LIVE_S} streams x {EQUAL_T} "
+              f"frames: {share}")
     result.update(osblock_launches=launches[osblock_cuda],
                   auction_launches=launches[auction_cuda])
     return result
@@ -1075,11 +1170,13 @@ def main(argv=None):
         print(f"chip_smoke: {torch.cuda.device_count()} CUDA devices visible;"
               " set CUDA_VISIBLE_DEVICES to one", file=sys.stderr)
         return 1
+    t0 = time.perf_counter()
     try:
         kernels, smi = run_smoke(args.baseline)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
+    print(f"chip_smoke: {time.perf_counter() - t0:.1f} s of wall time")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -5,11 +5,12 @@ leading stream dimension; the hot kernels are written by hand for the
 NVIDIA H100 (``csrc/``), each beside a plain PyTorch version that the
 CPU path runs. Entry points take ``device`` and default to ``"cuda"``.
 
-So far SORT, ByteTrack, OC-SORT, StrongSORT and BoT-SORT with their host
-wrappers, the eval CLI, OSNet live ReID (every OSBlock through a CUDA
-kernel on the card; every frame, at a cadence or at a priority budget)
-and the single-device multi-stream runner are ported; DeepOC-SORT,
-BoostTrack, HybridSORT and UCMCTrack are not yet.
+So far SORT, ByteTrack, OC-SORT, DeepOC-SORT, StrongSORT, BoT-SORT,
+BoostTrack and HybridSORT with their host wrappers, the eval CLI, the
+host camera-motion estimators and the sparse-flow one in torch, OSNet
+live ReID (every OSBlock through a CUDA kernel on the card; every frame,
+at a cadence or at a priority budget) and the single-device multi-stream
+runner are ported; UCMCTrack and the per-class wrapper are not yet.
 """
 
 __all__ = ["create_tracker", "TRACKERS"]

@@ -37,8 +37,9 @@ from motcpp_tpu_torch.data import (
 )
 from motcpp_tpu_torch.data.mot17 import imread
 
-#: ported trackers that take ReID weights
-REID_TRACKERS = ("strongsort", "botsort")
+#: the trackers that take ReID weights (JAX cli.py:25-26)
+REID_TRACKERS = ("deepocsort", "strongsort", "botsort", "boosttrack",
+                 "hybridsort")
 
 
 def build_tracker(name: str, fps: int = 30, reid_weights: str = "",
@@ -56,7 +57,7 @@ def build_tracker(name: str, fps: int = 30, reid_weights: str = "",
         defaults = dict(frame_rate=fps)
     if reid_weights and name in REID_TRACKERS:
         defaults["reid_weights"] = reid_weights
-        if name == "botsort":  # the trackers with a with_reid switch
+        if name in ("botsort", "hybridsort"):
             defaults["with_reid"] = True
     defaults.update(overrides)
     return motcpp_tpu_torch.create_tracker(name, device=device, **defaults)

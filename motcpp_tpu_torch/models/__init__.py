@@ -1,7 +1,8 @@
 """Tracker registry: ``registry`` maps tracker names to wrapper classes.
 
 Counterpart of ``motcpp_tpu/models/__init__.py``. Ported so far: SORT,
-ByteTrack, OC-SORT, StrongSORT and BoT-SORT.
+ByteTrack, OC-SORT, DeepOC-SORT, StrongSORT, BoT-SORT, BoostTrack and
+HybridSORT.
 """
 
 registry: dict = {}
@@ -18,8 +19,11 @@ def register(name: str):
 def _load_all():
     """Import the ported tracker modules so the registry is filled."""
     from motcpp_tpu_torch.models import (  # noqa: F401
+        boosttrack,
         botsort,
         bytetrack,
+        deepocsort,
+        hybridsort,
         ocsort,
         sort,
         strongsort,

@@ -434,7 +434,7 @@ class BotSort(BaseTrackerWrapper):
         if self._cmc is None:
             from motcpp_tpu_torch.motion.cmc import create_cmc
 
-            self._cmc = create_cmc(self.cfg.cmc_method)
+            self._cmc = create_cmc(self.cfg.cmc_method, device=self.device)
         return None if self._cmc is None else self._cmc.apply(img, dets)
 
     def _reid_features(self, dets, img):

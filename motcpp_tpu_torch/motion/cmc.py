@@ -1,18 +1,38 @@
-"""Camera-motion compensation: the host ECC estimator.
+"""Camera-motion compensation: the host ECC and sparse-flow estimators,
+and the sparse-flow estimator in plain torch.
 
-A copy of ``motcpp_tpu/motion/cmc.py::ECC`` and ``create_cmc`` for
-``"ecc"`` and ``"none"`` (the port imports nothing of the JAX package).
-ECC is the reference's enhanced-correlation alignment (reference:
-src/motion/cmc/{cmc,ecc}.cpp): grayscale, 0.15x downscale,
-``cv2.findTransformECC`` with MOTION_TRANSLATION, translation rescaled
-by 1/scale, identity on non-convergence. OpenCV stays optional: without
-it ``ECC.apply`` returns the identity. The sparse-optical-flow and
-in-graph estimators are not ported yet.
+A copy of ``motcpp_tpu/motion/cmc.py``'s ``ECC``, ``SOF``, ``SOFJax``,
+``sof_jax_batch`` and ``create_cmc`` (the port imports nothing of the
+JAX package). Each estimator returns the reference's (2, 3) affine warp
+contract, the identity on failure:
+
+  * :class:`ECC` is the reference's enhanced-correlation alignment
+    (reference: src/motion/cmc/{cmc,ecc}.cpp): grayscale, 0.15x
+    downscale, ``cv2.findTransformECC`` with MOTION_TRANSLATION,
+    translation rescaled by 1/scale, identity on non-convergence;
+  * :class:`SOF` is the reference's sparse optical flow (reference:
+    src/motion/cmc/sof.cpp): goodFeaturesToTrack (1000 corners, quality
+    0.01), cornerSubPix, pyramidal LK (21x21, 3 levels) and RANSAC
+    estimateAffinePartial2D; fewer than 4 tracked points give the
+    identity;
+  * :class:`SOFJax` and :func:`sof_jax_batch` are the JAX package's
+    device estimator in plain torch: Harris corners, Lucas-Kanade on a
+    fixed set of the strongest corners and a least-squares partial
+    affine with one residual-trim pass, at fixed shapes, batched over
+    streams.
+
+OpenCV stays optional: without it ``ECC.apply`` returns the identity and
+``SOF.apply`` falls back to a fresh :class:`SOFJax`, as in the JAX
+package. The in-graph ECC (``ECCJax``, ``ecc_jax_batch``) is not ported
+yet: ``create_cmc`` raises for it.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+from motcpp_tpu_torch.device import resolve_device
 
 IDENTITY = np.asarray([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]], np.float32)
 
@@ -68,11 +88,321 @@ class ECC:
         self._prev = None
 
 
-def create_cmc(method: str = "ecc"):
-    """The estimator for ``method``: ``"ecc"``, or None for ``"none"``
-    or ``""``. The other methods of the JAX package raise, not ported."""
+class SOF:
+    """Sparse-optical-flow alignment (reference: sof.cpp:24-180).
+    ``device`` is where the fallback without OpenCV runs."""
+
+    def __init__(self, scale: float = 0.15, device="cuda"):
+        self.scale = scale
+        self.device = device
+        self._prev = None
+        self._prev_pts = None
+
+    @staticmethod
+    def _detect(cv2, gray):
+        """goodFeaturesToTrack and sub-pixel refinement (the reference
+        refines every corner set, sof.cpp:47,105,165: cornerSubPix with a
+        5x5 window, 30 iterations or 0.01 eps)."""
+        pts = cv2.goodFeaturesToTrack(
+            gray, maxCorners=1000, qualityLevel=0.01, minDistance=1
+        )
+        if pts is not None and len(pts) > 0:
+            criteria = (
+                cv2.TERM_CRITERIA_COUNT | cv2.TERM_CRITERIA_EPS, 30, 0.01
+            )
+            pts = cv2.cornerSubPix(gray, pts, (5, 5), (-1, -1), criteria)
+        return pts
+
+    def apply(self, img, dets=None) -> np.ndarray:
+        try:
+            import cv2
+        except ImportError:
+            # a fresh estimator each frame, as the JAX package's fallback
+            return SOFJax(device=self.device).apply(img, dets)
+        gray = _to_gray(img).astype(np.uint8)
+        if self.scale != 1.0:
+            gray = cv2.resize(gray, None, fx=self.scale, fy=self.scale)
+        if self._prev is None:
+            self._prev = gray
+            self._prev_pts = self._detect(cv2, gray)
+            return IDENTITY.copy()
+        warp = IDENTITY.copy()
+        pts = self._prev_pts
+        if pts is not None and len(pts) >= 4:
+            nxt, st, _ = cv2.calcOpticalFlowPyrLK(
+                self._prev, gray, pts, None,
+                winSize=(21, 21), maxLevel=3,
+            )
+            good = st.reshape(-1) == 1
+            if good.sum() >= 4:
+                m, _ = cv2.estimateAffinePartial2D(
+                    pts[good], nxt[good], method=cv2.RANSAC
+                )
+                if m is not None:
+                    warp = m.astype(np.float32)
+                    warp[:, 2] /= self.scale
+        self._prev = gray
+        self._prev_pts = self._detect(cv2, gray)
+        return warp
+
+    def reset(self):
+        self._prev = None
+        self._prev_pts = None
+
+
+# ---------------------------------------------------------------------------
+# the sparse-flow estimator in plain torch
+# ---------------------------------------------------------------------------
+
+
+def _resize_weights(in_size: int, out_size: int, device):
+    """(in_size, out_size) weights of a linear resize along one axis,
+    with the triangle kernel widened by the downscale factor (an
+    antialiasing filter), as ``jax.image.resize(..., "linear")`` builds
+    them (``compute_weight_mat``): half-pixel centres, each column
+    normalised, columns whose sample falls outside the input zeroed."""
+    inv_scale = 1.0 / (out_size / in_size)
+    kernel_scale = torch.tensor(max(inv_scale, 1.0), dtype=torch.float32,
+                                device=device)
+    inv = torch.tensor(inv_scale, dtype=torch.float32, device=device)
+    sample_f = ((torch.arange(out_size, dtype=torch.float32, device=device)
+                 + 0.5) * inv - 0.5)
+    x = (sample_f[None, :] - torch.arange(in_size, dtype=torch.float32,
+                                          device=device)[:, None]).abs()
+    weights = (1.0 - (x / kernel_scale).abs()).clamp_min(0.0)
+    total = weights.sum(0, keepdim=True)
+    eps32 = float(np.finfo(np.float32).eps)
+    weights = torch.where(total.abs() > 1000.0 * eps32,
+                          weights / torch.where(total != 0, total, 1.0), 0.0)
+    inside = (sample_f >= -0.5) & (sample_f <= in_size - 0.5)
+    return torch.where(inside[None, :], weights, 0.0)
+
+
+def resize_linear(img: torch.Tensor, out_hw) -> torch.Tensor:
+    """Antialiased linear resize of (..., H, W) float32 images to
+    ``out_hw``, the counterpart of ``jax.image.resize(img, out_hw,
+    "linear")``: the separable weights of :func:`_resize_weights`, rows
+    then columns. An axis whose size does not change is left as is."""
+    H, W = img.shape[-2:]
+    nh, nw = out_hw
+    if nh != H:
+        wh = _resize_weights(H, nh, img.device)
+        img = torch.matmul(wh.transpose(0, 1), img)
+    if nw != W:
+        ww = _resize_weights(W, nw, img.device)
+        img = torch.matmul(img, ww)
+    return img
+
+
+def _gradients(im):
+    gx = (torch.roll(im, -1, -1) - torch.roll(im, 1, -1)) * 0.5
+    gy = (torch.roll(im, -1, -2) - torch.roll(im, 1, -2)) * 0.5
+    return gx, gy
+
+
+def _box_blur(im, r=2):
+    k = 2 * r + 1
+    im = torch.cumsum(im, dim=-2)
+    im = (torch.roll(im, -r, -2) - torch.roll(im, r + 1, -2)) / k
+    im = torch.cumsum(im, dim=-1)
+    return (torch.roll(im, -r, -1) - torch.roll(im, r + 1, -1)) / k
+
+
+def _bilinear(im, ys, xs):
+    """Bilinear samples of (S, H, W) images at (S, C, P) points, edge
+    indices clamped."""
+    S, H, W = im.shape
+    y0 = torch.floor(ys)
+    x0 = torch.floor(xs)
+    wy = ys - y0
+    wx = xs - x0
+    y0i = y0.to(torch.int64).clamp(0, H - 1)
+    x0i = x0.to(torch.int64).clamp(0, W - 1)
+    y1i = (y0i + 1).clamp(0, H - 1)
+    x1i = (x0i + 1).clamp(0, W - 1)
+    flat = im.reshape(S, 1, H * W).expand(S, ys.shape[1], H * W)
+
+    def at(yi, xi):
+        return flat.gather(-1, yi * W + xi)
+
+    return (at(y0i, x0i) * (1 - wy) * (1 - wx)
+            + at(y0i, x1i) * (1 - wy) * wx
+            + at(y1i, x0i) * wy * (1 - wx)
+            + at(y1i, x1i) * wy * wx)
+
+
+def sof_jax_batch(prev, cur, n_corners: int = 256, win: int = 10,
+                  levels: int = 3):
+    """Camera motion of many streams at once: Harris corners on prev,
+    Lucas-Kanade to cur and a least-squares partial affine, for (S, H, W)
+    float32 grayscale pairs -> ((S, 2, 3) warps, (S,) ok flags), on the
+    tensors' device. Streams whose fit fails get the identity and ok
+    False."""
+    S, H, W = prev.shape
+    dev = prev.device
+    gx, gy = _gradients(prev)
+    ixx = _box_blur(gx * gx)
+    iyy = _box_blur(gy * gy)
+    ixy = _box_blur(gx * gy)
+    det = ixx * iyy - ixy * ixy
+    tr = ixx + iyy
+    harris = det - 0.04 * tr * tr
+    yy = torch.arange(H, device=dev)[:, None]
+    xx = torch.arange(W, device=dev)[None, :]
+    margin = win + 2
+    border = ((yy < margin) | (yy >= H - margin) | (xx < margin)
+              | (xx >= W - margin))
+    harris = torch.where(border, -torch.inf, harris)
+    # the strongest corners, the lowest index first among equal scores
+    # (as lax.top_k)
+    top = torch.sort(harris.reshape(S, -1), dim=-1, descending=True,
+                     stable=True)[1][:, :n_corners]
+    cy = torch.div(top, W, rounding_mode="floor").to(torch.float32)
+    cx = (top % W).to(torch.float32)
+
+    cgx, cgy = _gradients(cur)
+    offs = torch.arange(-win, win + 1, dtype=torch.float32, device=dev)
+    n_off = 2 * win + 1
+    oy = offs[:, None].expand(n_off, n_off).reshape(-1)
+    ox = offs[None, :].expand(n_off, n_off).reshape(-1)
+    ys = cy[..., None] + oy
+    xs = cx[..., None] + ox
+    tmpl = _bilinear(prev, ys, xs)  # the template from prev at the corners
+
+    def lk_level(dy, dx):
+        """Five Lucas-Kanade iterations from the displacement (dy, dx)."""
+        for _ in range(5):
+            ys2 = ys + dy[..., None]
+            xs2 = xs + dx[..., None]
+            i = _bilinear(cur, ys2, xs2)
+            gx_p = _bilinear(cgx, ys2, xs2)
+            gy_p = _bilinear(cgy, ys2, xs2)
+            err = tmpl - i
+            a11 = (gx_p * gx_p).sum(-1) + 1e-6
+            a12 = (gx_p * gy_p).sum(-1)
+            a22 = (gy_p * gy_p).sum(-1) + 1e-6
+            b1 = (gx_p * err).sum(-1)
+            b2 = (gy_p * err).sum(-1)
+            det_a = a11 * a22 - a12 * a12
+            ddx = (a22 * b1 - a12 * b2) / det_a
+            ddy = (a11 * b2 - a12 * b1) / det_a
+            dy, dx = dy + ddy, dx + ddx
+        return dy, dx
+
+    dy = torch.zeros_like(cy)
+    dx = torch.zeros_like(cx)
+    for _ in range(levels):
+        dy, dx = lk_level(dy, dx)
+
+    # valid: a small residual and a reasonable displacement
+    i = _bilinear(cur, ys + dy[..., None], xs + dx[..., None])
+    resid = (tmpl - i).abs().mean(-1)
+    disp = torch.sqrt(dy * dy + dx * dx)
+    ok = (resid < 10.0) & (disp < 0.2 * float(max(H, W)))
+
+    def fit(mask):
+        """Least-squares partial affine [a, -b, tx; b, a, ty] on the
+        masked points."""
+        wgt = mask.to(torch.float32)
+        n = wgt.sum(-1) + 1e-6
+        qx = cx + dx
+        qy = cy + dy
+        mpx = (wgt * cx).sum(-1) / n
+        mpy = (wgt * cy).sum(-1) / n
+        mqx = (wgt * qx).sum(-1) / n
+        mqy = (wgt * qy).sum(-1) / n
+        cpx = cx - mpx[:, None]
+        cpy = cy - mpy[:, None]
+        cqx = qx - mqx[:, None]
+        cqy = qy - mqy[:, None]
+        sxx = (wgt * (cpx * cqx + cpy * cqy)).sum(-1)
+        sxy = (wgt * (cpx * cqy - cpy * cqx)).sum(-1)
+        d = (wgt * (cpx * cpx + cpy * cpy)).sum(-1) + 1e-6
+        a = sxx / d
+        b = sxy / d
+        tx = mqx - (a * mpx - b * mpy)
+        ty = mqy - (b * mpx + a * mpy)
+        return a, b, tx, ty
+
+    a, b, tx, ty = fit(ok)
+    # one residual trim pass
+    rx = (a[:, None] * cx - b[:, None] * cy + tx[:, None]) - (cx + dx)
+    ry = (b[:, None] * cx + a[:, None] * cy + ty[:, None]) - (cy + dy)
+    r = torch.sqrt(rx * rx + ry * ry)
+    srt = torch.sort(torch.where(ok, r, 1e3), dim=-1)[0]
+    mid = n_corners // 2
+    median = ((srt[:, mid - 1] + srt[:, mid]) * 0.5 if n_corners % 2 == 0
+              else srt[:, mid])
+    ok2 = ok & (r < torch.clamp_min(2.0 * median, 2.0)[:, None])
+    a, b, tx, ty = fit(ok2)
+
+    enough = ok2.sum(-1) >= 4
+    warp = torch.stack([torch.stack([a, -b, tx], -1),
+                        torch.stack([b, a, ty], -1)], -2)
+    ident = torch.tensor(IDENTITY, device=dev)
+    return torch.where(enough[:, None, None], warp, ident), enough
+
+
+class SOFJax:
+    """The sparse-flow estimator of :func:`sof_jax_batch` for one
+    stream, on ``device``: each frame is downscaled by ``scale`` (at
+    least 32 px a side) and aligned with the previous one."""
+
+    def __init__(self, scale: float = 0.25, n_corners: int = 256,
+                 device="cuda"):
+        self.scale = scale
+        self.n_corners = n_corners
+        self.device = resolve_device(device)
+        self._prev = None
+
+    def _downscale(self, gray):
+        """The downscaled frame and the per-axis scales it achieved (the
+        32 px floor and the truncation make them differ from ``scale``);
+        translations are rescaled by these."""
+        h, w = gray.shape
+        nh, nw = max(int(h * self.scale), 32), max(int(w * self.scale), 32)
+        small = resize_linear(torch.from_numpy(gray).to(self.device),
+                              (nh, nw))
+        return small, (nh / h, nw / w)
+
+    def apply(self, img, dets=None) -> np.ndarray:
+        small, (sy, sx) = self._downscale(_to_gray(img))
+        if self._prev is None or self._prev.shape != small.shape:
+            self._prev = small
+            return IDENTITY.copy()
+        warp, _ = sof_jax_batch(self._prev[None], small[None],
+                                n_corners=self.n_corners)
+        warp = warp[0].cpu().numpy()
+        warp[0, 2] /= sx
+        warp[1, 2] /= sy
+        self._prev = small
+        return warp
+
+    def reset(self):
+        self._prev = None
+
+
+_ECC_JAX = ("the in-graph ECC (ECCJax, ecc_jax_batch) is not ported yet; "
+            "see ROADMAP.md, queue 1, item 12")
+
+
+def create_cmc(method: str = "ecc", prefer_jax: bool = False, device="cuda"):
+    """The estimator for ``method`` (the reference's cmc_method
+    dispatch): None for ``"none"`` or ``""``; ``"sof_jax"``, or
+    ``prefer_jax`` with any method but ECC, gives :class:`SOFJax` on
+    ``device``; ``"sof"`` :class:`SOF`; ``"ecc"`` :class:`ECC`. The
+    in-graph ECC (``"ecc_jax"``, or ``prefer_jax`` with ``"ecc"``)
+    raises ValueError, as does an unknown method."""
     if method in ("", "none", None):
         return None
+    if method == "sof_jax" or (prefer_jax and method == "sof"):
+        return SOFJax(device=device)
+    if method == "ecc_jax" or (prefer_jax and method == "ecc"):
+        raise ValueError(_ECC_JAX)
+    if prefer_jax:
+        return SOFJax(device=device)
+    if method == "sof":
+        return SOF(device=device)
     if method == "ecc":
         return ECC()
-    raise ValueError(f"cmc method {method!r} is not ported (only 'ecc', 'none')")
+    raise ValueError(f"Unknown cmc method: {method}")

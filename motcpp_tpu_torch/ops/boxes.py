@@ -108,3 +108,17 @@ def xysr2xyxy(xysr: torch.Tensor) -> torch.Tensor:
     hw = 0.5 * w
     hh = 0.5 * h
     return _stack(xc - hw, yc - hh, xc + hw, yc + hh)
+
+
+def warp_corners(xyxy: torch.Tensor, warp: torch.Tensor):
+    """Both corners of (S, K, 4) boxes through the per-stream (S, 2, 3)
+    camera-motion affines: the warped (x1, y1) and (x2, y2), each
+    (S, K, 2)."""
+    ones = torch.ones_like(xyxy[..., :1])
+    wt = warp.transpose(-1, -2)[:, None]  # (S, 1, 3, 2)
+
+    def apply(xy):
+        return torch.matmul(torch.cat([xy, ones], -1)[..., None, :],
+                            wt)[..., 0, :]
+
+    return apply(xyxy[..., 0:2]), apply(xyxy[..., 2:4])

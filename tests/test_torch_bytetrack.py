@@ -201,6 +201,6 @@ def test_wrapper_rejects_bad_input():
 
 def test_create_tracker_names():
     with pytest.raises(ValueError, match="not ported"):
-        create_tracker("deepocsort", device="cpu")
+        create_tracker("ucmctrack", device="cpu")
     with pytest.raises(ValueError, match="Unknown"):
         create_tracker("bogus", device="cpu")

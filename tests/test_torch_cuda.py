@@ -176,6 +176,105 @@ def test_strongsort_live_priority_kernel_path_equals_plain_path(cuda):
     assert torch.equal(ko[km], po[pm])
 
 
+@pytest.mark.parametrize("name,launches", [("deepocsort", 2),
+                                            ("boosttrack", 1),
+                                            ("hybridsort", 3)])
+def test_appearance_tracker_rollout_kernel_path_equals_plain_path(cuda, name,
+                                                                  launches):
+    """DeepOC-SORT, BoostTrack and HybridSORT at bench.py's motion-only
+    configs (bench.py:96-134)."""
+    import importlib
+
+    mod = importlib.import_module(f"motcpp_tpu_torch.models.{name}")
+    config = next(getattr(mod, a) for a in dir(mod) if a.endswith("Config"))
+    extra = {"deepocsort": dict(embedding_off=True, cmc_off=True),
+             "boosttrack": {}, "hybridsort": dict(with_reid=False)}[name]
+    rollout_kernel_path_equals_plain_path(
+        cuda, lambda lap, K, N, dev: getattr(mod, f"make_{name}")(config(
+            min_hits=1, max_tracks=K, max_dets=N, lap_impl=lap, **extra),
+            device=dev), launches)
+
+
+@pytest.mark.parametrize("name,launches,runner_kw", [
+    ("deepocsort", 2, dict(emb_cadence=8)),
+    ("boosttrack", 1, dict(emb_cadence=2)),
+    ("hybridsort", 3, dict(crop_budget=205, emb_priority=True)),
+])
+def test_appearance_tracker_live_kernel_path_equals_plain_path(
+        cuda, name, launches, runner_kw):
+    """Live ReID at each tracker's deployed cadence or priority budget
+    (bench.py DEPLOYED; HybridSORT's 0.8 of S*N, below the valid crop
+    count): OSNet x0_25 with every OSBlock through its kernel (6 launches
+    an embedded frame) and the auction kernel; the plain-auction path is
+    fed the same embeddings, replayed, and emits the same."""
+    import importlib
+
+    from motcpp_tpu_torch.appearance import osblock_cuda
+    from motcpp_tpu_torch.appearance.osnet import init_params, osnet_x0_25
+    from motcpp_tpu_torch.appearance.reid import make_embed_fn
+
+    mod = importlib.import_module(f"motcpp_tpu_torch.models.{name}")
+    config = next(getattr(mod, a) for a in dir(mod) if a.endswith("Config"))
+    extra = {"deepocsort": dict(embedding_off=False, cmc_off=True),
+             "boosttrack": dict(with_reid=True),
+             "hybridsort": dict(with_reid=True)}[name]
+    S, N, T, D = 16, 16, 6, 512
+    dets, masks = synth_stream_dets(np.random.default_rng(0), T, S, N,
+                                    n_obj=14)
+    crops = torch.randint(0, 256, (T, S, N, 64, 32, 3), dtype=torch.uint8,
+                          generator=torch.Generator().manual_seed(0))
+    embed = make_embed_fn(init_params(osnet_x0_25(feature_dim=D), seed=0),
+                          compute_dtype="bfloat16", fused=True, device=cuda)
+    recorded = []
+
+    def record(c):
+        recorded.append(embed(c))
+        return recorded[-1]
+
+    replay = iter(recorded)
+    outs = {}
+    for lap, fn in (("auction_pallas", record),
+                    ("auction", lambda c: next(replay))):
+        init, step = getattr(mod, f"make_{name}")(config(
+            min_hits=1, emb_dim=D, max_tracks=64, max_dets=N, lap_impl=lap,
+            **extra), device=cuda)
+        before = (osblock_cuda.LAUNCHES, auction_cuda.LAUNCHES)
+        runner = MultiStreamRunner(init, step, S, device=cuda, embed_fn=fn,
+                                   **runner_kw)
+        outs[lap] = runner.run(dets, masks, embs=crops)
+        launched = (osblock_cuda.LAUNCHES - before[0],
+                    auction_cuda.LAUNCHES - before[1])
+        assert launched == ((6 * T, launches * T) if lap == "auction_pallas"
+                            else (0, 0))
+    if runner_kw.get("emb_priority"):
+        assert int(masks.sum((1, 2)).min()) > runner_kw["crop_budget"]
+    (ko, km), (po, pm) = outs["auction_pallas"], outs["auction"]
+    assert int(km.sum()) > 0
+    assert torch.equal(km, pm)
+    assert torch.equal(ko[km], po[pm])
+
+
+@pytest.mark.parametrize("name", ["deepocsort", "boosttrack", "hybridsort"])
+def test_appearance_tracker_eval_cli_on_the_card_writes_the_goldens(
+        cuda, name, tmp_path):
+    """The port's eval CLI on the card (exact JV; the wrappers' own
+    camera-motion estimators on the dummy frames: without OpenCV, SOF
+    falls back to the torch estimator and ECC to the identity) writes
+    tests/golden/<tracker> byte for byte, as on the CPU."""
+    from pathlib import Path
+
+    from motcpp_tpu_torch.cli import main
+
+    root = Path(__file__).resolve().parent
+    mot = root.parent / "assets" / "MOT17-mini" / "train"
+    assert main([str(mot), str(tmp_path), name, "--max-dets", "128",
+                 "--max-tracks", "128"]) == 0
+    golden = sorted((root / "golden" / name).glob("*.txt"))
+    assert len(golden) == 2
+    for gf in golden:
+        assert (tmp_path / gf.name).read_text() == gf.read_text(), gf.name
+
+
 def osblock_setup(device, dtype, seed=0, arch="x0_25"):
     """Folded OSNet weights (osnet_x0_25 unless ``arch`` says otherwise)
     packed per block, on ``device``."""

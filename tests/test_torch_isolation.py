@@ -112,7 +112,8 @@ def test_live_reid_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
             MultiStreamRunner(init, step, 2, **kw)
 
 
-@pytest.mark.parametrize("name", ["sort", "strongsort", "ocsort"])
+@pytest.mark.parametrize("name", ["sort", "strongsort", "ocsort", "deepocsort",
+                                  "boosttrack", "hybridsort"])
 def test_tracker_entry_points_default_to_cuda_and_raise_without_it(no_cuda,
                                                                   name):
     import importlib

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """On-card smoke run of motcpp_tpu_torch: builds the CUDA kernels from
 the sources in this checkout, holds each against its plain PyTorch
-version, drives the ByteTrack, SORT, OC-SORT, DeepOC-SORT, BoostTrack
-and HybridSORT multi-stream paths at the bench's shapes and the
+version, drives the ByteTrack, SORT, OC-SORT, DeepOC-SORT, BoostTrack,
+HybridSORT and UCMCTrack multi-stream paths at the bench's shapes, the
 live-ReID BoT-SORT, StrongSORT, DeepOC-SORT, BoostTrack and HybridSORT
-paths at the bench's live-ReID shape, and checks what they emit.
+paths at the bench's live-ReID shape and StrongSORT with live camera
+motion from frames, and checks what they emit.
 
     python3 chip_smoke.py [--baseline OTHER_AUCTION_CU]
 
@@ -82,13 +83,28 @@ so those compare float32 arithmetic. Phases:
      with with_reid at its deployed cadence 2 (1024 crops a frame);
  14. HybridSORT: motion-only (min_hits=1, with_reid=False), three
      launches a frame (stage 1, BYTE, the rematch); live ReID with
-     with_reid at its deployed priority 0.8 (a budget of 1638 crops).
+     with_reid at its deployed priority 0.8 (a budget of 1638 crops);
+ 15. UCMCTrack at bench.py's config (the defaults, no calibration),
+     S=2048, as phase 10: two launches a frame (stage 1, then stages 2
+     and 3 as one launch);
+ 16. live camera motion, bench.py's strongsort_cmc_ecc row: StrongSORT
+     (n_init=1, gallery_cap=16) under MultiStreamRunner with
+     cmc_fn=ecc_jax_batch at CMC scale 0.15, S=512, T=60, over
+     (60, 512, 162, 288) float32 panning textures made on the card:
+     the warps of one frame pair against the known pans (x = -pan within
+     1e-3 px, ok everywhere), the ECC's device time on one pair, ms per
+     frame-batch and streams at 30 FPS (two auction launches a frame),
+     the auction kernel on the path's inputs beside its bound, a profile
+     of one frame split among the ECC, the tracker and the auction
+     kernel, the live rollout split across two run() calls against a
+     rollout fed the same estimator's warps (identical masks, boxes
+     within 1e-4), and a run without camera motion, which must differ.
 
 Any failed check exits nonzero before the result is printed. The last
 line is ``{"ok": true, "device": {...}}``; the line before it is the
 card's name and power limit, and the one before that lists the kernels
 with their times and bounds (those of phases 3 and 7) and their
-launches summed over the main paths of phases 3, 7 and 9-14, each
+launches summed over the main paths of phases 3, 7 and 9-16, each
 counted from zero; before those, the script's wall time.
 """
 
@@ -144,6 +160,9 @@ EQUAL_T = 12  # frames of the kernel-path-vs-plain-path live runs
 STRONG_PRIORITY, HYBRID_PRIORITY = 0.6, 0.8
 DEEPOC_CADENCE, BOOST_CADENCE = 8, 2
 OC_S = 2048  # bench.py's default stream count (all but SORT and ByteTrack)
+# bench.py's live-CMC row (strongsort_cmc_ecc): 512 streams, frames at the
+# reference's CMC scale
+CMC_S, CMC_SCALE = 512, 0.15
 
 
 class SmokeFailure(Exception):
@@ -482,6 +501,17 @@ def run_smoke(baseline=None):
             model, scene, smi, [point])
     del scene
 
+    # ---- 15. UCMCTrack at bench.py's config (bench.py:128-133) -------------
+    from motcpp_tpu_torch.models.ucmctrack import UCMCConfig, make_ucmctrack
+
+    paths["UCMCTrack"] = tracker_path(
+        (15, 15), "UCMCTrack", OC_S, ("stage 1", "stages 2+3"),
+        lambda lap: make_ucmctrack(UCMCConfig(
+            max_tracks=K, max_dets=N, lap_impl=lap), device="cuda"), smi)
+
+    # ---- 16. live camera motion: bench.py's strongsort_cmc_ecc row --------
+    paths["StrongSORT ECC"] = live_ecc_phase(16, smi)
+
     motion = [p for name, p in paths.items() if not name.endswith("live")]
     live_paths = [p for name, p in paths.items() if name.endswith("live")]
     kernels = [{
@@ -735,50 +765,75 @@ def timed_runs(runner, dets, masks, crops, counters, want):
     return float(np.median(times)), times, outs, out_masks
 
 
-def profile_live_frame(runner, dets, masks, crops):
-    """torch.profiler over one frame of the live path after two: kernel
-    time of the OSBlock kernel, the rest of the device span of the
-    "osnet" range that chip_smoke's embed wrapper opens (the rest of
-    OSNet), the kernel time outside it (the tracker), and the auction
-    kernel's part of that."""
+def profile_frame(runner, dets, masks, span, legs):
+    """torch.profiler over one frame of a path after two (``legs``: the
+    run() keywords beside dets and masks, each (T, ...)): the kernels'
+    time and share of the wall; the kernels that ran inside the device
+    span of the ``span`` range that the path's wrapper opens ("osnet" or
+    "ecc"), split for OSNet into the OSBlock kernel and the rest, and
+    the span's length (it also covers the idle gaps between them); the
+    kernel time outside the span (the tracker) and the auction kernel's
+    part of that; the operators that take the most device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     runner.reset()
-    runner.run(dets[:2], masks[:2], embs=crops[:2])
+    runner.run(dets[:2], masks[:2], **{k: v[:2] for k, v in legs.items()})
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        runner.run(dets[2:3], masks[2:3], embs=crops[2:3])
+        runner.run(dets[2:3], masks[2:3],
+                   **{k: v[2:3] for k, v in legs.items()})
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    events = prof.key_averages()
-    cuda = [e for e in events if e.device_type == DeviceType.CUDA]
-    # the "osnet" range also appears on the device timeline, as the span
-    # from its first kernel's start to its last kernel's end
-    osnet_us = sum(e.self_device_time_total for e in cuda if e.key == "osnet")
-    launched = [e for e in cuda if e.key != "osnet"]
-    device_us = sum(e.self_device_time_total for e in launched)
+    # the range also appears on the device timeline, as the span from its
+    # first kernel's start to its last kernel's end
+    on_device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = [e.time_range for e in on_device if e.name == span]
+    kernels = [e for e in on_device if e.name != span]
+    device_us = sum(e.time_range.elapsed_us() for e in kernels)
     if not device_us:
         return "profiler recorded no device time: shares not measured"
-    block_us = sum(e.self_device_time_total for e in launched
-                   if "osblock" in e.key)
-    auction_us = sum(e.self_device_time_total for e in launched
-                     if "auction" in e.key)
-    if not osnet_us:
-        split = "no device span of the osnet range: split not measured"
+
+    def kernel_us(keep):
+        return sum(e.time_range.elapsed_us() for e in kernels if keep(e))
+
+    def in_span(e):
+        return any(s.start <= e.time_range.start < s.end for s in spans)
+
+    inside_us = kernel_us(in_span)
+    block_us = kernel_us(lambda e: span == "osnet" and in_span(e)
+                         and "osblock" in e.name)
+    auction_us = kernel_us(lambda e: not in_span(e) and "auction" in e.name)
+    ops = sorted((e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CPU
+                  and e.self_device_time_total > 0),
+                 key=lambda e: -e.self_device_time_total)
+    top = "; ".join(f"{e.key} {e.self_device_time_total / 1e3:.3f} ms "
+                    f"x{e.count}" for e in ops[:8])
+    label = {"osnet": "rest of OSNet", "ecc": "ECC"}[span]
+    parts = [f"1 frame: wall {wall_us / 1e3:.3f} ms under the profiler, "
+             f"kernels {device_us / 1e3:.3f} ms "
+             f"({100 * device_us / wall_us:.1f}% of wall)"]
+    if span == "osnet":
+        parts.append(f"OSBlock kernel {block_us / 1e3:.3f} ms "
+                     f"({100 * block_us / device_us:.1f}%)")
+    if not spans:
+        parts.append(f"no device span of the {span} range: split not "
+                     "measured")
     else:
-        split = (f"rest of OSNet's device span {(osnet_us - block_us) / 1e3:.3f}"
-                 f" ms ({100 * (osnet_us - block_us) / device_us:.1f}%), "
-                 f"tracker and the rest {(device_us - osnet_us) / 1e3:.3f} ms "
-                 f"({100 * (device_us - osnet_us) / device_us:.1f}%), of it "
-                 f"the auction kernel {auction_us / 1e3:.4f} ms")
-    return (f"1 frame: wall {wall_us / 1e3:.3f} ms under the profiler, "
-            f"kernels {device_us / 1e3:.3f} ms "
-            f"({100 * device_us / wall_us:.1f}% of wall); OSBlock kernel "
-            f"{block_us / 1e3:.3f} ms ({100 * block_us / device_us:.1f}%), "
-            f"{split}; {sum(e.count for e in launched)} kernels")
+        rest = inside_us - block_us
+        span_us = sum(s.elapsed_us() for s in spans)
+        parts.append(
+            f"{label} {rest / 1e3:.3f} ms ({100 * rest / device_us:.1f}%; "
+            f"the {span} range's device span {span_us / 1e3:.3f} ms), "
+            f"tracker and the rest {(device_us - inside_us) / 1e3:.3f} ms "
+            f"({100 * (device_us - inside_us) / device_us:.1f}%), of it the "
+            f"auction kernel {auction_us / 1e3:.4f} ms")
+    parts.append(f"{len(kernels)} kernels; top operators by device time: "
+                 f"{top}")
+    return "; ".join(parts)
 
 
 def check_live_outputs(label, e, outs, out_masks):
@@ -1009,7 +1064,8 @@ def live_reid_phases(osblock_build, card):
         init, step, LIVE_S, device="cuda", embed_fn=embed), dets, masks, crops)
     runner = MultiStreamRunner(init, step, LIVE_S, device="cuda",
                                embed_fn=embed_fn)
-    print(f"phase 7 profile: {profile_live_frame(runner, dets, masks, crops)}")
+    profiled = profile_frame(runner, dets, masks, "osnet", {"embs": crops})
+    print(f"phase 7 profile: {profiled}")
 
     # ---- 8. kernel path against the plain path ----------------------------
     with exact_float32():
@@ -1136,9 +1192,9 @@ def live_tracker_phases(phase, name, make, stages, model, scene, card,
         result["auction"] = auction_on_path(
             phase, f"{name} live", stages,
             lambda: runner.run(dets[2:3], masks[2:3], embs=crops[2:3]), card)
-        print(f"phase {phase} {name} profile: "
-              f"{profile_live_frame(runner_for(embed_fn), dets, masks, crops)}"
-              f"; card: {card}")
+        profiled = profile_frame(runner_for(embed_fn), dets, masks, "osnet",
+                                 {"embs": crops})
+        print(f"phase {phase} {name} profile: {profiled}; card: {card}")
         n_eq = auction_paths_equal(name, make, embed, dets_all, masks_all,
                                    crops_all)
         print(f"phase {phase} {name} auction kernel = plain auction on "
@@ -1154,6 +1210,134 @@ def live_tracker_phases(phase, name, make, stages, model, scene, card,
     result.update(osblock_launches=launches[osblock_cuda],
                   auction_launches=launches[auction_cuda])
     return result
+
+
+def live_ecc_phase(phase, card):
+    """Phase ``phase``: bench.py's strongsort_cmc_ecc row. StrongSORT
+    (n_init=1, gallery_cap=16, no embeddings) under MultiStreamRunner
+    with cmc_fn=ecc_jax_batch at CMC scale 0.15, CMC_S streams of T
+    frames of panning 162x288 textures made on the card: the warps of
+    one frame pair against the known pans; one warm-up and REPEATS timed
+    run()s (2*T auction launches each); the ECC's device time on one
+    frame pair; the auction kernel on the path's inputs; a profile of
+    one frame; the live rollout against a with_warps rollout fed the
+    same estimator's warps frame by frame, split across two run()
+    calls; and a run without camera motion, which must differ."""
+    from torch.profiler import record_function
+
+    from motcpp_tpu_torch.data import pan_frames, synth_stream_dets
+    from motcpp_tpu_torch.models.strongsort import (
+        StrongSortConfig,
+        make_strongsort,
+    )
+    from motcpp_tpu_torch.motion.cmc import ecc_jax_batch
+    from motcpp_tpu_torch.ops import auction_cuda
+    from motcpp_tpu_torch.parallel.streams import MultiStreamRunner
+
+    fh, fw = int(1080 * CMC_SCALE), int(1920 * CMC_SCALE)
+    frames, pans = pan_frames(T, CMC_S, fh, fw,
+                              torch.Generator(device="cuda").manual_seed(0))
+    gb = frames.numel() * 4 / 1e9
+    # the warps recover each stream's pan: cur(x) = prev(x + pan)
+    w, ok = ecc_jax_batch(frames[0], frames[1])
+    err_x = float((w[:, 0, 2] + pans.float()).abs().max())
+    err_y = float(w[:, 1, 2].abs().max())
+    check(bool(ok.all()), f"ECC failed on {int((~ok).sum())} streams")
+    check(err_x <= 1e-3 and err_y <= 1e-3, f"ECC warps miss the pans by "
+          f"{err_x:.2e} px in x, {err_y:.2e} px in y (> 1e-3)")
+    ecc_ms = cuda_ms(lambda: ecc_jax_batch(frames[0], frames[1]), 5)
+    ecc_bound = 2 * frames[0].numel() * 4 / HBM_BYTES_PER_S * 1e3
+    print(f"phase {phase} ECC on one frame pair, S={CMC_S} "
+          f"{tuple(frames.shape[2:])}: warps x = -pan within {err_x:.2e} px,"
+          f" y within {err_y:.2e} px, ok on every stream; {ecc_ms:.3f} ms "
+          f"of device time (the two frames read once at the HBM rate: "
+          f"{ecc_bound:.4f} ms); frames {tuple(frames.shape)} float32, "
+          f"{gb:.2f} GB on the card")
+
+    def ecc_fn(prev, cur):
+        with record_function("ecc"):
+            return ecc_jax_batch(prev, cur)
+
+    def make(lap):
+        return make_strongsort(StrongSortConfig(
+            n_init=1, gallery_cap=16, max_tracks=K, max_dets=N,
+            lap_impl=lap), device="cuda")
+
+    init, step = make("auction_pallas")
+    dets_np, masks_np = synth_stream_dets(np.random.default_rng(0), T,
+                                          CMC_S, N, n_obj=N_OBJ)
+    dets = torch.from_numpy(dets_np).cuda()
+    masks = torch.from_numpy(masks_np).cuda()
+    runner = MultiStreamRunner(init, step, CMC_S, device="cuda",
+                               cmc_fn=ecc_fn, cmc_scale=CMC_SCALE)
+    auction_cuda.LAUNCHES = 0
+    times = []
+    for rep in range(1 + REPEATS):
+        runner.reset()
+        before = auction_cuda.LAUNCHES
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs, out_masks = runner.run(dets, masks, frames=frames)
+        torch.cuda.synchronize()
+        if rep:
+            times.append(time.perf_counter() - t0)
+        check(auction_cuda.LAUNCHES - before == 2 * T,
+              f"live ECC run {rep}: {auction_cuda.LAUNCHES - before} kernel "
+              f"launches, want {2 * T}")
+    launches = auction_cuda.LAUNCHES
+    emitted = int(out_masks.sum())
+    check(outs.shape == (T, CMC_S, K, 8) and emitted > 0
+          and bool(torch.isfinite(outs[out_masks]).all()),
+          f"live ECC: output {tuple(outs.shape)}, {emitted} emissions")
+    run_s = float(np.median(times))
+    print(f"phase {phase} StrongSORT live ECC main path S={CMC_S} K={K} "
+          f"N={N} T={T}, frames {tuple(frames.shape[2:])} at CMC scale "
+          f"{CMC_SCALE}: {run_s * 1e3 / T:.3f} ms per frame-batch (median of "
+          f"{REPEATS}, runs {[round(t * 1e3, 1) for t in times]} ms), "
+          f"{CMC_S * T / run_s / 30:.1f} streams at 30 FPS, {emitted} "
+          f"emissions in the last run, {launches} kernel launches "
+          f"({launches // (1 + REPEATS)} per run); card: {card}")
+
+    runner.reset()
+    runner.run(dets[: T // 2], masks[: T // 2], frames=frames[: T // 2])
+    sl = slice(T // 2, T // 2 + 1)
+    stats = auction_on_path(
+        phase, "StrongSORT live ECC", ("stage A", "stage B"),
+        lambda: runner.run(dets[sl], masks[sl], frames=frames[sl]), card)
+    print(f"phase {phase} StrongSORT live ECC profile: "
+          f"{profile_frame(runner, dets, masks, 'ecc', {'frames': frames})}; "
+          f"card: {card}")
+
+    # the live leg against the same estimator's warps fed frame by frame
+    scale = float(np.float32(1.0 / CMC_SCALE))
+    warps = torch.empty((T, CMC_S, 2, 3), device="cuda")
+    warps[0] = torch.eye(2, 3, device="cuda")
+    for t in range(1, T):
+        w, _ = ecc_jax_batch(frames[t - 1], frames[t])
+        warps[t] = torch.cat([w[..., :2], w[..., 2:] * scale], -1)
+    fed = MultiStreamRunner(init, step, CMC_S, device="cuda",
+                            with_warps=True).run(dets, masks, warps=warps)
+    live = MultiStreamRunner(init, step, CMC_S, device="cuda",
+                             cmc_fn=ecc_jax_batch, cmc_scale=CMC_SCALE)
+    half = T // 2
+    parts = [live.run(dets[sl], masks[sl], frames=frames[sl])
+             for sl in (slice(0, half), slice(half, T))]
+    lo, lm = (torch.cat([p[i] for p in parts]) for i in range(2))
+    check(torch.equal(lm, fed[1]), "live ECC: masks differ from the rollout "
+          "fed the same warps")
+    box_err = float((lo[lm] - fed[0][fed[1]]).abs().max())
+    check(box_err <= 1e-4, f"live ECC: boxes differ from the rollout fed "
+          f"the same warps by {box_err:.2e} (> 1e-4)")
+    po, pm = MultiStreamRunner(init, step, CMC_S, device="cuda").run(dets,
+                                                                     masks)
+    check(not (torch.equal(pm, lm) and torch.equal(po[pm], lo[lm])),
+          "live ECC: a run without camera motion emits the same tracks")
+    print(f"phase {phase} live ECC over two run() calls = rollout fed the "
+          f"estimator's warps: identical masks ({int(lm.sum())} emissions), "
+          f"boxes within {box_err:.2e}; without camera motion "
+          f"{int(pm.sum())} emissions, {int((pm != lm).sum())} slots differ")
+    del frames
+    return dict(stats, auction_launches=launches)
 
 
 def main(argv=None):

@@ -55,6 +55,9 @@ def build_tracker(name: str, fps: int = 30, reid_weights: str = "",
     defaults: dict = {}
     if name == "bytetrack":
         defaults = dict(frame_rate=fps)
+    elif name in ("ucmc", "ucmctrack"):
+        # dt = 1 / sequence fps (reference: motcpp_eval.cpp:129)
+        defaults = dict(dt=1.0 / fps)
     if reid_weights and name in REID_TRACKERS:
         defaults["reid_weights"] = reid_weights
         if name in ("botsort", "hybridsort"):

@@ -1,14 +1,17 @@
-"""Synthetic multi-stream detections for the rollout.
+"""Synthetic multi-stream inputs for the rollout.
 
-A copy of ``bench.py::synth_stream_dets``: S streams of n_obj jittered
-constant-velocity boxes over T frames, each box missing in 5% of frames,
-drawn from a NumPy generator so that the JAX package and the port see
-the same input.
+``synth_stream_dets`` is a copy of ``bench.py::synth_stream_dets``: S
+streams of n_obj jittered constant-velocity boxes over T frames, each box
+missing in 5% of frames, drawn from a NumPy generator so that the JAX
+package and the port see the same input. ``pan_frames`` makes the live
+camera-motion frames of ``bench.py:269-294`` from a torch generator, on
+the generator's device.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 def synth_stream_dets(rng, T, S, N, n_obj=16, img_w=1920, img_h=1080):
@@ -34,3 +37,30 @@ def synth_stream_dets(rng, T, S, N, n_obj=16, img_w=1920, img_h=1080):
         dets[t, :, :n_obj, 4] = conf
         masks[t, :, :n_obj] = visible
     return dets, masks
+
+
+def pan_texture(S, h, w, gen):
+    """Per stream a texture of uniform noise upsampled in blocks of 8, 16
+    and 32, scaled by /3*255: (S, h, w) float32 on ``gen``'s device."""
+    tex = torch.zeros((S, h, w), device=gen.device)
+    for blk in (8, 16, 32):
+        small = torch.rand((S, h // blk + 1, w // blk + 1), generator=gen,
+                           device=gen.device)
+        tex += small.repeat_interleave(blk, 1).repeat_interleave(
+            blk, 2)[:, :h, :w]
+    return tex / 3.0 * 255.0
+
+
+def pan_frames(T, S, h, w, gen):
+    """bench.py's live-CMC frames: each stream's ``pan_texture`` panned
+    left by an integer 0-3 px a frame (cur(x) = prev(x + pan)). Returns
+    frames (T, S, h, w) float32 and pans (S,) int64, on ``gen``'s
+    device."""
+    pans = torch.randint(0, 4, (S,), generator=gen, device=gen.device)
+    tex = pan_texture(S, h, w + int(pans.max()) * T, gen)
+    frames = torch.empty((T, S, h, w), device=gen.device)
+    cols = torch.arange(w, device=gen.device)
+    for t in range(T):
+        idx = pans[:, None] * t + cols
+        frames[t] = tex.gather(2, idx[:, None, :].expand(S, h, w))
+    return frames, pans

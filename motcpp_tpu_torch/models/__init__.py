@@ -1,8 +1,9 @@
 """Tracker registry: ``registry`` maps tracker names to wrapper classes.
 
-Counterpart of ``motcpp_tpu/models/__init__.py``. Ported so far: SORT,
-ByteTrack, OC-SORT, DeepOC-SORT, StrongSORT, BoT-SORT, BoostTrack and
-HybridSORT.
+Counterpart of ``motcpp_tpu/models/__init__.py``: all nine trackers
+(SORT, ByteTrack, OC-SORT, DeepOC-SORT, StrongSORT, BoT-SORT,
+BoostTrack, HybridSORT and UCMCTrack). ``per_class.PerClassTracker``
+wraps any of them to track each class on its own.
 """
 
 registry: dict = {}
@@ -27,4 +28,5 @@ def _load_all():
         ocsort,
         sort,
         strongsort,
+        ucmctrack,
     )

@@ -1,10 +1,10 @@
 """Camera-motion compensation: the host ECC and sparse-flow estimators,
-and the sparse-flow estimator in plain torch.
+and both estimators in plain torch.
 
 A copy of ``motcpp_tpu/motion/cmc.py``'s ``ECC``, ``SOF``, ``SOFJax``,
-``sof_jax_batch`` and ``create_cmc`` (the port imports nothing of the
-JAX package). Each estimator returns the reference's (2, 3) affine warp
-contract, the identity on failure:
+``sof_jax_batch``, ``ECCJax``, ``ecc_jax_batch`` and ``create_cmc`` (the
+port imports nothing of the JAX package). Each estimator returns the
+reference's (2, 3) affine warp contract, the identity on failure:
 
   * :class:`ECC` is the reference's enhanced-correlation alignment
     (reference: src/motion/cmc/{cmc,ecc}.cpp): grayscale, 0.15x
@@ -19,15 +19,21 @@ contract, the identity on failure:
     device estimator in plain torch: Harris corners, Lucas-Kanade on a
     fixed set of the strongest corners and a least-squares partial
     affine with one residual-trim pass, at fixed shapes, batched over
-    streams.
+    streams;
+  * :class:`ECCJax` and :func:`ecc_jax_batch` are the JAX package's
+    device ECC in plain torch: a phase-correlation integer shift, then
+    a fixed number of Gauss-Newton steps on the translation residual,
+    batched over streams (``parallel/streams.py`` runs it in the
+    rollout as the live camera-motion leg).
 
 OpenCV stays optional: without it ``ECC.apply`` returns the identity and
 ``SOF.apply`` falls back to a fresh :class:`SOFJax`, as in the JAX
-package. The in-graph ECC (``ECCJax``, ``ecc_jax_batch``) is not ported
-yet: ``create_cmc`` raises for it.
+package.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -339,7 +345,7 @@ def sof_jax_batch(prev, cur, n_corners: int = 256, win: int = 10,
     enough = ok2.sum(-1) >= 4
     warp = torch.stack([torch.stack([a, -b, tx], -1),
                         torch.stack([b, a, ty], -1)], -2)
-    ident = torch.tensor(IDENTITY, device=dev)
+    ident = torch.eye(2, 3, device=dev)
     return torch.where(enough[:, None, None], warp, ident), enough
 
 
@@ -382,23 +388,231 @@ class SOFJax:
         self._prev = None
 
 
-_ECC_JAX = ("the in-graph ECC (ECCJax, ecc_jax_batch) is not ported yet; "
-            "see ROADMAP.md, queue 1, item 12")
+# ---------------------------------------------------------------------------
+# the ECC estimator in plain torch
+# ---------------------------------------------------------------------------
+
+
+def _hann(n: int, device):
+    i = torch.arange(n, dtype=torch.float32, device=device)
+    return 0.5 - 0.5 * torch.cos(2 * math.pi * i / n)
+
+
+def phase_shift(prev, cur):
+    """The integer shift (tx, ty) of cur against prev per stream, as
+    float32 (S,) each, by phase correlation: the Hann-windowed
+    cross-power spectrum's first maximum, wrapped past the midpoint to
+    a negative shift."""
+    S, H, W = prev.shape
+    win = _hann(H, prev.device)[:, None] * _hann(W, prev.device)[None, :]
+    f1 = torch.fft.rfft2((prev - prev.mean((-2, -1), keepdim=True)) * win)
+    f2 = torch.fft.rfft2((cur - cur.mean((-2, -1), keepdim=True)) * win)
+    xps = f1 * torch.conj(f2)
+    xps = xps / (torch.abs(xps) + 1e-9)
+    corr = torch.fft.irfft2(xps, s=(H, W))
+    peak = corr.reshape(S, -1).argmax(-1)  # the first maximum
+    py = torch.div(peak, W, rounding_mode="floor").to(torch.float32)
+    px = (peak % W).to(torch.float32)
+    py = torch.where(py > H / 2, py - H, py)
+    px = torch.where(px > W / 2, px - W, px)
+    # the peak is at -p (mod the size) for cur = prev shifted by +p
+    return -px, -py
+
+
+def ecc_jax_batch(prev, cur, n_iters: int = 8):
+    """Translation-only ECC alignment of many streams at once: (S, H, W)
+    float32 grayscale pairs, already at CMC scale, -> ((S, 2, 3) warps
+    mapping prev coordinates to cur's, (S,) ok flags), on the tensors'
+    device. The warp W satisfies cur(W(x)) ~= prev(x), as the
+    reference's ``cv2.findTransformECC`` with MOTION_TRANSLATION
+    (reference: src/motion/cmc/ecc.cpp:22-98); a stream that does not
+    converge, or whose frames are flat, gets the identity and ok False.
+
+    The JAX package's ``_ecc_jax_core`` over a stream batch:
+
+      1. phase correlation (:func:`phase_shift`) gives each stream's
+         integer shift, also far outside Gauss-Newton's basin;
+      2. ``n_iters`` forward-additive Gauss-Newton steps on the
+         zero-mean correlation refine the sub-pixel residual over the
+         interior (an 8 px margin), with cur aligned by the integer
+         shift (wrapping, as ``jnp.roll``) and resampled bilinearly
+         from four windows at each stream's offset, blended in the JAX
+         package's order of terms. A stream stops moving once its step
+         is below 1e-4 px or fails; every iteration runs for every
+         stream, with no host synchronisation.
+    """
+    S, H, W = prev.shape
+    dev = prev.device
+    prev = prev.to(torch.float32)
+    cur = cur.to(torch.float32)
+    tx0, ty0 = phase_shift(prev, cur)
+
+    # --- ECC refinement over the interior -------------------------------
+    m = 8
+    ih, iw = H - 2 * m, W - 2 * m
+    res_max = float(m - 2)  # keeps every window inside the frame
+    ti_y = torch.round(ty0).to(torch.int64)
+    ti_x = torch.round(tx0).to(torch.int64)
+    # the aligned interior, eroded by the residual clamp and one pixel
+    # for the gradient stencil inside the window
+    yy = torch.arange(m, H - m, device=dev)
+    xx = torch.arange(m, W - m, device=dev)
+    src_y = yy + ti_y[:, None]  # (S, ih): the rows of cur they come from
+    src_x = xx + ti_x[:, None]  # (S, iw)
+    vy = (src_y >= m) & (src_y <= H - 1 - m) & (yy > m) & (yy < H - 1 - m)
+    vx = (src_x >= m) & (src_x <= W - 1 - m) & (xx > m) & (xx < W - 1 - m)
+    wgt = (vy[:, :, None] & vx[:, None, :]).to(torch.float32)
+    n_w = wgt.sum((-2, -1)) + 1e-9
+
+    rows_h = torch.arange(ih, device=dev)
+    cols_w = torch.arange(iw, device=dev)
+
+    def total(a):
+        return a.sum((-2, -1))
+
+    def sample_interior(ry, rx):
+        """cur aligned by the integer shift, sampled bilinearly at the
+        interior grid + (ry, rx) per stream, |r| <= res_max: four
+        windows at offsets clamped as ``lax.dynamic_slice`` clamps
+        them, read from cur with the integer shift's wrap."""
+        y0 = torch.floor(ry)
+        x0 = torch.floor(rx)
+        fy = (ry - y0)[:, None, None]
+        fx = (rx - x0)[:, None, None]
+        sy = m + y0.to(torch.int64)
+        sx = m + x0.to(torch.int64)
+
+        def rows(dy):
+            start = (sy + dy).clamp(0, H - ih)
+            idx = (start[:, None] + rows_h + ti_y[:, None]) % H  # (S, ih)
+            return cur.gather(1, idx[:, :, None].expand(S, ih, W))
+
+        def cols(band, dx):
+            start = (sx + dx).clamp(0, W - iw)
+            idx = (start[:, None] + cols_w + ti_x[:, None]) % W  # (S, iw)
+            return band.gather(2, idx[:, None, :].expand(S, ih, iw))
+
+        r0, r1 = rows(0), rows(1)
+        return (cols(r0, 0) * (1 - fy) * (1 - fx)
+                + cols(r0, 1) * (1 - fy) * fx
+                + cols(r1, 0) * fy * (1 - fx)
+                + cols(r1, 1) * fy * fx)
+
+    tmpl = prev[:, m:H - m, m:W - m]
+    tbar = (tmpl - (total(wgt * tmpl) / n_w)[:, None, None]) * wgt
+    t_norm2 = total(tbar * tbar)
+
+    def zero_mean(a):
+        return (a - (total(wgt * a) / n_w)[:, None, None]) * wgt
+
+    rx = tx0 - ti_x.to(torch.float32)
+    ry = ty0 - ti_y.to(torch.float32)
+    frozen = torch.zeros(S, dtype=torch.bool, device=dev)
+    rho = torch.zeros(S, device=dev)
+    for _ in range(n_iters):
+        iwin = sample_interior(ry, rx)
+        # gradients by central differences within the window (the
+        # eroded weights mask the band the roll wraps)
+        gxw = (torch.roll(iwin, -1, -1) - torch.roll(iwin, 1, -1)) * 0.5
+        gyw = (torch.roll(iwin, -1, -2) - torch.roll(iwin, 1, -2)) * 0.5
+        ibar = zero_mean(iwin)
+        gxb = zero_mean(gxw)
+        gyb = zero_mean(gyw)
+        # the 2x2 Gram of the translation Jacobian's columns
+        c11 = total(gxb * gxb) + 1e-9
+        c12 = total(gxb * gyb)
+        c22 = total(gyb * gyb) + 1e-9
+        detc = c11 * c22 - c12 * c12
+        iv1 = total(gxb * ibar)
+        iv2 = total(gyb * ibar)
+        tv1 = total(gxb * tbar)
+        tv2 = total(gyb * tbar)
+
+        def cinv(v1, v2):
+            return ((c22 * v1 - c12 * v2) / detc,
+                    (c11 * v2 - c12 * v1) / detc)
+
+        ci1, ci2 = cinv(iv1, iv2)
+        i_norm2 = total(ibar * ibar)
+        num = i_norm2 - (iv1 * ci1 + iv2 * ci2)
+        tdot = total(tbar * ibar)
+        den = tdot - (tv1 * ci1 + tv2 * ci2)
+        # den <= 0: the correlation cannot increase; hold
+        lam = num / torch.where(den > 1e-9, den, 1.0)
+        d1, d2 = cinv(lam * tv1 - iv1, lam * tv2 - iv2)
+        step_ok = (den > 1e-9) & torch.isfinite(d1) & torch.isfinite(d2)
+        upd = step_ok & ~frozen
+        rx = torch.clamp(torch.where(upd, rx + d1, rx), -res_max, res_max)
+        ry = torch.clamp(torch.where(upd, ry + d2, ry), -res_max, res_max)
+        frozen = frozen | (torch.sqrt(d1 * d1 + d2 * d2) < 1e-4) | ~step_ok
+        rho = tdot / (torch.sqrt(t_norm2 * i_norm2) + 1e-9)
+    tx = ti_x.to(torch.float32) + rx
+    ty = ti_y.to(torch.float32) + ry
+    ok = (torch.isfinite(tx) & torch.isfinite(ty) & (rho > 0.2)
+          & (tx.abs() < 0.5 * W) & (ty.abs() < 0.5 * H)
+          # enough valid overlap for the masked statistics to mean anything
+          & (n_w > 0.25 * ih * iw))
+    # made on the device: a copy from the host would wait for the queue
+    ident = torch.eye(2, 3, device=dev)
+    warp = ident.expand(S, 2, 3).clone()
+    warp[:, 0, 2] = tx
+    warp[:, 1, 2] = ty
+    return torch.where(ok[:, None, None], warp, ident), ok
+
+
+class ECCJax:
+    """The ECC estimator of :func:`ecc_jax_batch` for one stream, on
+    ``device``: the host :class:`ECC`'s contract (grayscale, downscale by
+    ``scale`` to at least 32 px a side, identity first) with the
+    translation rescaled by the per-axis scales the downscale achieved;
+    needs no OpenCV."""
+
+    def __init__(self, scale: float = 0.15, n_iters: int = 8, device="cuda"):
+        self.scale = scale
+        self.n_iters = n_iters
+        self.device = resolve_device(device)
+        self._prev = None
+
+    def _downscale(self, gray):
+        """The downscaled frame and the per-axis scales it achieved (the
+        32 px floor and the truncation make them differ from ``scale``);
+        translations are rescaled by these."""
+        h, w = gray.shape
+        nh, nw = max(int(h * self.scale), 32), max(int(w * self.scale), 32)
+        small = resize_linear(torch.from_numpy(gray).to(self.device),
+                              (nh, nw))
+        return small, (nh / h, nw / w)
+
+    def apply(self, img, dets=None) -> np.ndarray:
+        small, (sy, sx) = self._downscale(_to_gray(img))
+        if self._prev is None or self._prev.shape != small.shape:
+            self._prev = small
+            return IDENTITY.copy()
+        warp, _ = ecc_jax_batch(self._prev[None], small[None],
+                                n_iters=self.n_iters)
+        warp = warp[0].cpu().numpy()
+        warp[0, 2] /= sx
+        warp[1, 2] /= sy
+        self._prev = small
+        return warp
+
+    def reset(self):
+        self._prev = None
 
 
 def create_cmc(method: str = "ecc", prefer_jax: bool = False, device="cuda"):
     """The estimator for ``method`` (the reference's cmc_method
     dispatch): None for ``"none"`` or ``""``; ``"sof_jax"``, or
-    ``prefer_jax`` with any method but ECC, gives :class:`SOFJax` on
-    ``device``; ``"sof"`` :class:`SOF`; ``"ecc"`` :class:`ECC`. The
-    in-graph ECC (``"ecc_jax"``, or ``prefer_jax`` with ``"ecc"``)
-    raises ValueError, as does an unknown method."""
+    ``prefer_jax`` with ``"sof"`` or an unknown method, gives
+    :class:`SOFJax` on ``device``; ``"ecc_jax"``, or ``prefer_jax`` with
+    ``"ecc"``, :class:`ECCJax` on ``device``; ``"sof"`` :class:`SOF`;
+    ``"ecc"`` :class:`ECC`. An unknown method raises ValueError."""
     if method in ("", "none", None):
         return None
     if method == "sof_jax" or (prefer_jax and method == "sof"):
         return SOFJax(device=device)
     if method == "ecc_jax" or (prefer_jax and method == "ecc"):
-        raise ValueError(_ECC_JAX)
+        return ECCJax(device=device)
     if prefer_jax:
         return SOFJax(device=device)
     if method == "sof":

@@ -8,12 +8,15 @@ every stream at once (a leading S dimension), so a rollout is a Python
 loop over the T frames, where the JAX package scans. With an
 ``embed_fn`` the embedding leg is live ReID: the rollout takes raw uint8
 crops and runs the CNN over each frame's crops before the tracker step.
+With a ``cmc_fn`` the warp leg is live camera motion: the rollout takes
+grayscale frames and estimates each frame's warps on the device.
 """
 
 from __future__ import annotations
 
 from typing import Callable
 
+import numpy as np
 import torch
 
 from motcpp_tpu_torch.device import resolve_device
@@ -82,9 +85,10 @@ def make_rollout_general(step_fn: Callable, with_embs: bool = False,
                          emb_cadence: int | None = None,
                          emb_priority: bool = False,
                          priority_rot: int = 8,
-                         cmc_fn: Callable | None = None):
+                         cmc_fn: Callable | None = None,
+                         cmc_scale: float = 1.0):
     """Rollout with optional embedding (T, S, N, D), camera-warp
-    (T, S, 2, 3) and raw-crop legs:
+    (T, S, 2, 3), raw-crop and frame legs:
 
         rollout(states, dets, masks[, embs or crops][, warps])
 
@@ -111,10 +115,24 @@ def make_rollout_general(step_fn: Callable, with_embs: bool = False,
     ``((states, (dets, mask) of its last frame), outs)`` so the novelty
     baseline carries across calls.
 
-    ``cmc_fn`` is not ported yet and raises.
+    With ``cmc_fn`` (a batched estimator such as
+    motion/cmc.py::ecc_jax_batch or sof_jax_batch: (S, h, w) previous and
+    current grayscale frames -> ((S, 2, 3) warps, (S,) ok)) the warp leg
+    is live camera motion: the rollout takes grayscale frames
+    (T, S, h, w) in place of warps, estimates each frame's S warps from
+    the previous frame before the tracker step, and rescales their
+    translations by 1 / ``cmc_scale``, the factor the frames were
+    downscaled by (ecc.cpp:70-80). It then takes the previous frame
+    (S, h, w) and a ``has_prev`` bool (the first frame ever gets the
+    identity) after the leading arguments above, and returns
+    ``((states[, (dets, mask)], last frame, True), outs)``:
+
+        rollout(states[, frame0, stream_ids[, prev_dets, prev_masks]],
+                prev_frame, has_prev, dets, masks[, crops], frames)
     """
-    if cmc_fn is not None:
-        raise NotImplementedError("cmc_fn (live camera motion) is not ported yet")
+    use_cmc = cmc_fn is not None
+    if use_cmc and with_warps:
+        raise ValueError("cmc_fn replaces the warps input; do not set both")
     if crop_budget is not None and embed_fn is None:
         raise ValueError("crop_budget requires embed_fn (live ReID)")
     if emb_cadence is not None:
@@ -133,6 +151,9 @@ def make_rollout_general(step_fn: Callable, with_embs: bool = False,
             raise ValueError(
                 "emb_priority replaces emb_cadence (its rotation term "
                 "subsumes the cadence refresh); set one or the other")
+    # JAX multiplies by the float32 1 / cmc_scale (6.6666665 at 0.15),
+    # which rounds otherwise than a division by cmc_scale
+    inv_scale = float(np.float32(1.0 / float(cmc_scale)))
 
     def _embed(crops, d, m, t, stream_ids, prev):
         from motcpp_tpu_torch.appearance.reid import embed_valid_crops
@@ -150,7 +171,20 @@ def make_rollout_general(step_fn: Callable, with_embs: bool = False,
         return embed_valid_crops(embed_fn, crops, d, m, budget=budget,
                                  priority=priority)
 
-    def run_frames(states, dets, masks, extra, frame0, stream_ids, prev=None):
+    def _live_warp(prev_frame, has_prev, frame):
+        """(S, 2, 3) warps from the previous frame to ``frame``; the
+        identity while there is no previous frame (the first-frame
+        contract of every host estimator, ecc.cpp:40-46)."""
+        if not has_prev:
+            return torch.eye(2, 3, device=frame.device).expand(
+                frame.shape[0], 2, 3)
+        w, _ = cmc_fn(prev_frame, frame)
+        if cmc_scale != 1.0:
+            w = torch.cat([w[..., :2], w[..., 2:] * inv_scale], -1)
+        return w
+
+    def run_frames(states, dets, masks, extra, frame0, stream_ids, prev=None,
+                   cmc=None):
         outs, out_masks = [], []
         for t in range(dets.shape[0]):
             d, m = dets[t], masks[t]
@@ -162,30 +196,50 @@ def make_rollout_general(step_fn: Callable, with_embs: bool = False,
                     e = _embed(e, d, m, frame0 + t, stream_ids, prev)
                 args.append(e)
             prev = (d, m)
-            if with_warps:
+            if use_cmc:
+                frame = rest.pop(0)
+                warp = _live_warp(*cmc, frame)
+                cmc = (frame, True)
+            elif with_warps:
+                warp = rest.pop(0)
+            if use_cmc or with_warps:
                 if not with_embs:
                     args.append(None)
-                args.append(rest.pop(0))
+                args.append(warp)
             states, (out, out_mask) = step_fn(states, *args)
             outs.append(out)
             out_masks.append(out_mask)
-        return states, (torch.stack(outs), torch.stack(out_masks)), prev
+        return states, (torch.stack(outs), torch.stack(out_masks)), prev, cmc
 
-    def rollout(states, dets, masks, *extra):
-        states, outs, _ = run_frames(states, dets, masks, extra, 0, None)
-        return states, outs
+    def split_cmc(rest):
+        """(prev frame, has_prev) and the time-major arguments."""
+        if use_cmc:
+            return (rest[0], bool(rest[1])), rest[2:]
+        return None, rest
 
-    def rollout_cadence(states, frame0, stream_ids, dets, masks, *extra):
-        states, outs, _ = run_frames(states, dets, masks, extra, int(frame0),
-                                     stream_ids)
-        return states, outs
+    def carry(states, prev, cmc):
+        tail = ((prev,) if emb_priority else ()) + (cmc if use_cmc else ())
+        return (states,) + tail if tail else states
+
+    def rollout(states, *rest):
+        cmc, (dets, masks, *extra) = split_cmc(rest)
+        states, outs, _, cmc = run_frames(states, dets, masks, extra, 0,
+                                          None, cmc=cmc)
+        return carry(states, None, cmc), outs
+
+    def rollout_cadence(states, frame0, stream_ids, *rest):
+        cmc, (dets, masks, *extra) = split_cmc(rest)
+        states, outs, _, cmc = run_frames(states, dets, masks, extra,
+                                          int(frame0), stream_ids, cmc=cmc)
+        return carry(states, None, cmc), outs
 
     def rollout_priority(states, frame0, stream_ids, prev_dets, prev_masks,
-                         dets, masks, *extra):
-        states, outs, prev = run_frames(states, dets, masks, extra,
-                                        int(frame0), stream_ids,
-                                        (prev_dets, prev_masks))
-        return (states, prev), outs
+                         *rest):
+        cmc, (dets, masks, *extra) = split_cmc(rest)
+        states, outs, prev, cmc = run_frames(states, dets, masks, extra,
+                                             int(frame0), stream_ids,
+                                             (prev_dets, prev_masks), cmc)
+        return carry(states, prev, cmc), outs
 
     if emb_priority:
         return rollout_priority
@@ -211,8 +265,13 @@ class MultiStreamRunner:
     :func:`embedding_priority` (the previous frame's detections carried
     across run() calls) and ``emb_cadence=k`` embeds each stream every
     k-th frame, staggered by stream, with the phase carried across run()
-    calls. The state carries across ``run()`` calls until ``reset()``.
-    ``cmc_fn`` is not ported yet and raises.
+    calls. Live camera motion (motion/cmc.py::ecc_jax_batch or
+    sof_jax_batch as ``cmc_fn``): run() takes grayscale frames
+    (T, S, h, w) float32 at CMC scale (``cmc_scale``, 0.15 in the
+    reference, cmc.cpp:8-26) as ``frames`` and each frame's warps are
+    estimated on the device from the previous frame, which carries
+    across run() calls (the first frame ever gets the identity). The
+    state carries across ``run()`` calls until ``reset()``.
     """
 
     def __init__(self, init_fn: Callable, step_fn: Callable, n_streams: int,
@@ -220,11 +279,13 @@ class MultiStreamRunner:
                  with_warps: bool = False, embed_fn: Callable | None = None,
                  crop_budget: int | None = None,
                  emb_cadence: int | None = None, emb_priority: bool = False,
-                 priority_rot: int = 8, cmc_fn: Callable | None = None):
+                 priority_rot: int = 8, cmc_fn: Callable | None = None,
+                 cmc_scale: float = 1.0):
         self.n_streams = int(n_streams)
         self.device = resolve_device(device)
         self.with_embs = bool(with_embs) or embed_fn is not None
         self.with_warps = bool(with_warps)
+        self.with_cmc = cmc_fn is not None
         self.emb_cadence = int(emb_cadence) if emb_cadence else 1
         self.emb_priority = bool(emb_priority)
         # cadence and priority share the frame phase (frame0, stream ids)
@@ -234,31 +295,38 @@ class MultiStreamRunner:
             step_fn, with_embs=self.with_embs, with_warps=self.with_warps,
             embed_fn=embed_fn, crop_budget=crop_budget,
             emb_cadence=emb_cadence, emb_priority=self.emb_priority,
-            priority_rot=priority_rot, cmc_fn=cmc_fn)
+            priority_rot=priority_rot, cmc_fn=cmc_fn, cmc_scale=cmc_scale)
         self._frame0 = 0
         self._prev_dets = None  # priority mode: (dets, mask) of the last frame
+        self._prev_frames = None  # live camera motion: the last frame
         self._states = None
 
     def init_states(self):
         return self._init_fn(self.n_streams)
 
     def run(self, dets, masks, embs=None, warps=None, states=None,
-            frame0=None):
+            frames=None, frame0=None):
         """Track T frames of all streams; returns (outs, out_masks) on the
         runner's device. embs (T, S, N, D), or crops under live ReID, is
         required iff the runner was built with embeddings; warps
-        (T, S, 2, 3) iff with_warps. Without ``states`` the call
-        continues from the carried state (and cadence phase) and updates
-        them; with ``states`` it is pure: the carried state, phase and
-        previous detections are left as they were, the phase is
-        ``frame0`` (default 0) and, under ``emb_priority``, every
-        detection counts as novel on the first frame."""
+        (T, S, 2, 3) iff with_warps; frames (T, S, h, w) iff with
+        ``cmc_fn``. Without ``states`` the call continues from the
+        carried state (and cadence phase and previous frame) and updates
+        them; with ``states`` it is pure: the carried state, phase,
+        previous detections and previous frame are left as they were,
+        the phase is ``frame0`` (default 0), under ``emb_priority``
+        every detection counts as novel on the first frame, and under
+        live camera motion the first frame's warps come from the
+        carried previous frame (as in the JAX package)."""
         if (embs is not None) != self.with_embs:
             raise ValueError(
                 "pass embs iff the runner was built with embeddings")
         if (warps is not None) != self.with_warps:
             raise ValueError(
                 "pass warps iff the runner was built with with_warps=True")
+        if (frames is not None) != self.with_cmc:
+            raise ValueError(
+                "pass frames iff the runner was built with cmc_fn")
         if frame0 is not None and not self._use_phase:
             raise ValueError("frame0 only applies with emb_cadence set")
         dets = torch.as_tensor(dets, dtype=torch.float32, device=self.device)
@@ -281,6 +349,14 @@ class MultiStreamRunner:
                     f"embs must lead with {tuple(dets.shape[:3])}, got "
                     f"{tuple(embs.shape)}")
             extra.append(embs)
+        if frames is not None:
+            frames = torch.as_tensor(frames, dtype=torch.float32,
+                                     device=self.device)
+            if frames.dim() != 4 or frames.shape[:2] != dets.shape[:2]:
+                raise ValueError(
+                    f"frames must be {tuple(dets.shape[:2])} + (h, w), got "
+                    f"{tuple(frames.shape)}")
+            extra.append(frames)
         if warps is not None:
             warps = torch.as_tensor(warps, dtype=torch.float32,
                                     device=self.device)
@@ -296,27 +372,32 @@ class MultiStreamRunner:
             states = self._states
         else:
             states = self.init_states()
+        lead = ()
         if self._use_phase:
             f0 = int(frame0 or 0) if stateless else self._frame0
-            ids = torch.arange(self.n_streams, device=self.device)
-            lead = (f0, ids)
+            lead = (f0, torch.arange(self.n_streams, device=self.device))
             if self.emb_priority:
                 prev = None if stateless else self._prev_dets
                 if prev is None:  # no previous observations: all novel
                     prev = (torch.zeros_like(dets[0]),
                             torch.zeros_like(masks[0]))
                 lead += prev
-            states, outs = self._rollout(states, *lead, dets, masks, *extra)
+        if self.with_cmc:
+            lead += (self._prev_frames, self._prev_frames is not None)
+        carry, outs = self._rollout(states, *lead, dets, masks, *extra)
+        if stateless:
+            return outs
+        if self.emb_priority or self.with_cmc:
+            states, *tail = carry
             if self.emb_priority:
-                states, prev = states
-            if not stateless:
-                self._frame0 += dets.shape[0]
-                if self.emb_priority:
-                    self._prev_dets = prev
+                self._prev_dets = tail.pop(0)
+            if self.with_cmc:  # a copy: a view would hold all T frames
+                self._prev_frames = tail[0].clone()
         else:
-            states, outs = self._rollout(states, dets, masks, *extra)
-        if not stateless:
-            self._states = states
+            states = carry
+        if self._use_phase:
+            self._frame0 += dets.shape[0]
+        self._states = states
         return outs
 
     def set_states(self, states, frame0: int = 0):
@@ -335,3 +416,4 @@ class MultiStreamRunner:
         self._states = None
         self._frame0 = 0
         self._prev_dets = None
+        self._prev_frames = None

@@ -25,6 +25,8 @@ from motcpp_tpu.appearance.quant import fold_osnet as jax_fold
 from motcpp_tpu.appearance.quant import forward_folded_f32 as jax_folded_fwd
 from motcpp_tpu_torch.appearance import osblock, osnet, quant, reid
 
+import torch_threads  # noqa: F401  (torch at one thread)
+
 HERE = Path(__file__).resolve().parent
 FIXTURE = HERE / "fixtures" / "osnet_x0_25_converted.npz"
 HW = (32, 16)

@@ -31,6 +31,8 @@ from motcpp_tpu_torch.models import boosttrack as bt
 from motcpp_tpu_torch.parallel.streams import MultiStreamRunner
 from test_torch_golden import check_goldens
 
+import torch_threads  # noqa: F401  (torch at one thread)
+
 HERE = Path(__file__).resolve().parent
 INT_FIELDS = ("active", "tid", "det_ind", "age", "tsu", "hit_streak",
               "has_emb", "next_id", "frame_count")

@@ -32,6 +32,8 @@ from motcpp_tpu_torch.models.botsort import (
 )
 from motcpp_tpu_torch.ops.kalman import kf_xywh
 
+import torch_threads  # noqa: F401  (torch at one thread)
+
 HERE = Path(__file__).resolve().parent
 INT_FIELDS = ("tstate", "is_activated", "tid", "det_ind", "start_frame",
               "end_frame", "has_feat", "next_id", "frame_count")

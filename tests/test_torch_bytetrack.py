@@ -29,6 +29,8 @@ from motcpp_tpu_torch.models.bytetrack import (
 )
 from motcpp_tpu_torch.parallel.streams import MultiStreamRunner
 
+import torch_threads  # noqa: F401  (torch at one thread)
+
 INT_FIELDS = ("tstate", "is_activated", "tid", "det_ind", "start_frame",
               "last_frame", "next_id", "frame_id")
 FLOAT_FIELDS = ("mean", "cov", "conf", "cls")
@@ -200,7 +202,13 @@ def test_wrapper_rejects_bad_input():
 
 
 def test_create_tracker_names():
-    with pytest.raises(ValueError, match="not ported"):
-        create_tracker("ucmctrack", device="cpu")
+    """Every tracker of TRACKERS is ported (UCMCTrack also as "ucmc");
+    an unknown name raises."""
+    import motcpp_tpu_torch
+    from motcpp_tpu_torch import models
+
+    for name in motcpp_tpu_torch.TRACKERS + ("ucmc",):
+        create_tracker(name, max_tracks=4, max_dets=2, device="cpu")
+    assert set(models.registry) == set(motcpp_tpu_torch.TRACKERS) | {"ucmc"}
     with pytest.raises(ValueError, match="Unknown"):
         create_tracker("bogus", device="cpu")

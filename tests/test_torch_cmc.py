@@ -25,6 +25,8 @@ from motcpp_tpu.motion import cmc as jcmc
 from motcpp_tpu_torch import create_tracker
 from motcpp_tpu_torch.motion import cmc
 
+import torch_threads  # noqa: F401  (torch at one thread)
+
 HERE = Path(__file__).resolve().parent
 
 
@@ -110,8 +112,10 @@ def test_create_cmc_accepts_and_rejects_as_the_jax_package():
         assert type(jcmc.create_cmc(method, prefer_jax=prefer)).__name__ == (
             "SOFJax")
     for method, prefer in (("ecc_jax", False), ("ecc", True)):
-        with pytest.raises(ValueError, match="item 12"):
-            cmc.create_cmc(method, prefer_jax=prefer, device="cpu")
+        est = cmc.create_cmc(method, prefer_jax=prefer, device="cpu")
+        assert isinstance(est, cmc.ECCJax) and est.device.type == "cpu"
+        assert type(jcmc.create_cmc(method, prefer_jax=prefer)).__name__ == (
+            "ECCJax")
     with pytest.raises(ValueError, match="Unknown cmc method"):
         cmc.create_cmc("bogus")
 

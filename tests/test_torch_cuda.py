@@ -13,10 +13,12 @@ import pytest
 import torch
 
 from auction_cases import EDGE_CASES, edge_case
-from motcpp_tpu_torch.data import synth_stream_dets
+from motcpp_tpu_torch.data import pan_frames, pan_texture, synth_stream_dets
 from motcpp_tpu_torch.models.bytetrack import ByteTrackConfig, make_bytetrack
 from motcpp_tpu_torch.ops import auction, auction_cuda
 from motcpp_tpu_torch.parallel.streams import MultiStreamRunner
+
+import torch_threads  # noqa: F401  (torch at one thread)
 
 
 @pytest.fixture
@@ -273,6 +275,132 @@ def test_appearance_tracker_eval_cli_on_the_card_writes_the_goldens(
     assert len(golden) == 2
     for gf in golden:
         assert (tmp_path / gf.name).read_text() == gf.read_text(), gf.name
+
+
+def test_ucmctrack_rollout_kernel_path_equals_plain_path(cuda):
+    """bench.py's config: stage 1, then stages 2 and 3 as one launch."""
+    from motcpp_tpu_torch.models.ucmctrack import UCMCConfig, make_ucmctrack
+
+    rollout_kernel_path_equals_plain_path(
+        cuda, lambda lap, K, N, dev: make_ucmctrack(UCMCConfig(
+            max_tracks=K, max_dets=N, lap_impl=lap), device=dev), 2)
+
+
+@pytest.mark.parametrize("which", ["golden", "golden_long"])
+def test_ucmctrack_eval_cli_on_the_card_writes_the_goldens(cuda, which,
+                                                           tmp_path):
+    """The port's eval CLI on the card (exact JV, dt = 1/fps) writes
+    tests/golden/ucmctrack and tests/golden_long/ucmctrack byte for
+    byte, as on the CPU."""
+    from pathlib import Path
+
+    from motcpp_tpu_torch.cli import main
+
+    root = Path(__file__).resolve().parent
+    mot = root.parent / "assets" / "MOT17-mini" / "train"
+    extra = ["--no-ablation", "--limit-frames", "150"] if which == (
+        "golden_long") else []
+    assert main([str(mot), str(tmp_path), "ucmctrack", "--max-dets", "128",
+                 "--max-tracks", "128", *extra]) == 0
+    golden = sorted((root / which / "ucmctrack").glob("*.txt"))
+    assert len(golden) == 2
+    for gf in golden:
+        assert (tmp_path / gf.name).read_text() == gf.read_text(), gf.name
+
+
+def textured_pairs(S=8, h=162, w=288, seed=0):
+    """bench.py's live-CMC textures at its 0.15 scale (``pan_texture``),
+    each stream's second frame the first shifted by whole pixels (some
+    outside Gauss-Newton's basin) and the last stream flat."""
+    tex = pan_texture(S, h + 64, w + 64,
+                      torch.Generator().manual_seed(seed)).numpy()
+    shifts = np.random.default_rng(seed).integers(-30, 31, (S, 2))
+    prev = tex[:, 32:32 + h, 32:32 + w]
+    cur = np.stack([tex[s, 32 - dy:32 - dy + h, 32 - dx:32 - dx + w]
+                    for s, (dx, dy) in enumerate(shifts)])
+    prev[-1] = cur[-1] = 127.0
+    return prev, cur, shifts
+
+
+def test_ecc_on_the_card_matches_the_cpu(cuda):
+    """ecc_jax_batch on the card against the port on the CPU, the same
+    frames: the integer phase-correlation shift exact (cuFFT and
+    pocketfft round differently), the ok flags equal and the warps
+    within 1e-4 px (tests/test_torch_ecc.py's tolerance)."""
+    from motcpp_tpu_torch.motion import cmc
+
+    prev, cur, shifts = textured_pairs()
+    on = [torch.from_numpy(a).to(cuda) for a in (prev, cur)]
+    off = [torch.from_numpy(a) for a in (prev, cur)]
+    for got, want in zip(cmc.phase_shift(*on), cmc.phase_shift(*off)):
+        assert torch.equal(got.cpu(), want)
+    (gw, gok), (ww, wok) = cmc.ecc_jax_batch(*on), cmc.ecc_jax_batch(*off)
+    assert torch.equal(gok.cpu(), wok)
+    assert wok[:-1].all() and not bool(wok[-1])
+    torch.testing.assert_close(gw.cpu(), ww, rtol=0, atol=1e-4)
+    np.testing.assert_allclose(ww[:-1, :, 2].numpy(), shifts[:-1], atol=1e-3)
+
+
+def test_live_cmc_strongsort_kernel_path_equals_plain_path(cuda):
+    """bench.py's strongsort_cmc_ecc row at S=64: StrongSORT with the
+    warps of ecc_jax_batch on each frame pair through the auction kernel
+    and through the plain auction, split across two run() calls."""
+    from motcpp_tpu_torch.models.strongsort import (
+        StrongSortConfig,
+        make_strongsort,
+    )
+    from motcpp_tpu_torch.motion.cmc import ecc_jax_batch
+
+    S, T, N = 64, 12, 32
+    dets, masks = synth_stream_dets(np.random.default_rng(0), T, S, N)
+    frames, _ = pan_frames(T, S, 162, 288,
+                           torch.Generator(device=cuda).manual_seed(0))
+    outs = {}
+    for lap in ("auction_pallas", "auction"):
+        init, step = make_strongsort(StrongSortConfig(
+            n_init=1, gallery_cap=16, max_tracks=64, max_dets=N,
+            lap_impl=lap), device=cuda)
+        runner = MultiStreamRunner(init, step, S, device=cuda,
+                                   cmc_fn=ecc_jax_batch, cmc_scale=0.15)
+        before = auction_cuda.LAUNCHES
+        parts = [runner.run(dets[sl], masks[sl], frames=frames[sl])
+                 for sl in (slice(0, 5), slice(5, T))]
+        assert auction_cuda.LAUNCHES - before == (
+            2 * T if lap == "auction_pallas" else 0)
+        outs[lap] = [torch.cat([p[i] for p in parts]) for i in range(2)]
+    (ko, km), (po, pm) = outs["auction_pallas"], outs["auction"]
+    assert int(km.sum()) > 0
+    assert torch.equal(km, pm)
+    assert torch.equal(ko[km], po[pm])
+
+
+@pytest.mark.parametrize("name,box_atol", [("ucmctrack", 0), ("sort", 1e-3)])
+def test_per_class_on_the_card_emits_what_it_emits_on_the_cpu(cuda, name,
+                                                               box_atol):
+    """PerClassTracker over the tracker on the card and on the CPU, on a
+    three-class scene: ids, confidences, classes and det_ind identical;
+    UCMCTrack's boxes are the detections', SORT's its Kalman state (the
+    card may fuse multiply-adds)."""
+    from motcpp_tpu_torch import create_tracker
+    from motcpp_tpu_torch.models.per_class import PerClassTracker
+
+    T, N = 24, 12
+    dets, masks = synth_stream_dets(np.random.default_rng(0), T, 1, N,
+                                    n_obj=N)
+    dets[..., 5] = (np.arange(N) % 3).astype(np.float32)
+    masks[12:16, :, 2::3] = False
+    kw = dict(max_tracks=16, max_dets=8)
+    trackers = [PerClassTracker(lambda dev=dev: create_tracker(
+        name, device=dev, **kw)) for dev in (cuda, "cpu")]
+    emitted = 0
+    for t in range(T):
+        got, want = (tr.update(dets[t, 0][masks[t, 0]]) for tr in trackers)
+        assert got.shape == want.shape, t
+        np.testing.assert_array_equal(got[:, 4:], want[:, 4:])
+        np.testing.assert_allclose(got[:, :4], want[:, :4], rtol=0,
+                                   atol=box_atol)
+        emitted += got.shape[0]
+    assert emitted > 0
 
 
 def osblock_setup(device, dtype, seed=0, arch="x0_25"):

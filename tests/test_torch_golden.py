@@ -11,6 +11,8 @@ import pytest
 from motcpp_tpu_torch.cli import main
 from motcpp_tpu_torch.data import MOT17Dataset
 
+import torch_threads  # noqa: F401  (torch at one thread)
+
 ROOT = Path(__file__).resolve().parent
 MOT_MINI = ROOT.parent / "assets" / "MOT17-mini" / "train"
 

@@ -32,6 +32,8 @@ from motcpp_tpu_torch.models import hybridsort as hs
 from motcpp_tpu_torch.parallel.streams import MultiStreamRunner
 from test_torch_golden import check_goldens
 
+import torch_threads  # noqa: F401  (torch at one thread)
+
 HERE = Path(__file__).resolve().parent
 INT_FIELDS = ("active", "tid", "age", "hits", "hit_streak", "tsu", "det_ind",
               "obs_age", "obs_ptr", "has_feat", "next_id", "frame_count")

@@ -11,6 +11,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (torch at one thread)
+
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "motcpp_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"
@@ -113,7 +115,7 @@ def test_live_reid_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
 
 
 @pytest.mark.parametrize("name", ["sort", "strongsort", "ocsort", "deepocsort",
-                                  "boosttrack", "hybridsort"])
+                                  "boosttrack", "hybridsort", "ucmctrack"])
 def test_tracker_entry_points_default_to_cuda_and_raise_without_it(no_cuda,
                                                                   name):
     import importlib
@@ -141,6 +143,26 @@ def test_tracker_entry_points_default_to_cuda_and_raise_without_it(no_cuda,
     out = create_tracker(name, device="cpu").update(
         np.array([[10, 10, 50, 90, 0.9, 0]], np.float32))
     assert out.shape[1] == 8
+
+
+def test_camera_motion_entry_points_default_to_cuda_and_raise_without_it(
+        no_cuda):
+    from motcpp_tpu_torch.models.strongsort import (
+        StrongSortConfig,
+        make_strongsort,
+    )
+    from motcpp_tpu_torch.motion import cmc
+    from motcpp_tpu_torch.parallel.streams import MultiStreamRunner
+
+    for make in (cmc.ECCJax, cmc.SOFJax, lambda: cmc.create_cmc("ecc_jax")):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    init, step = make_strongsort(StrongSortConfig(), device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        MultiStreamRunner(init, step, 2, cmc_fn=cmc.ecc_jax_batch,
+                          cmc_scale=0.15)
+    assert isinstance(cmc.create_cmc("ecc", prefer_jax=True, device="cpu"),
+                      cmc.ECCJax)
 
 
 def test_cpu_is_used_only_when_asked(no_cuda):

@@ -29,6 +29,8 @@ from motcpp_tpu.ops.lap import solve_lap_masked as jax_lap
 from motcpp_tpu_torch.ops import auction, auction_cuda
 from motcpp_tpu_torch.ops.lap import solve_lap_masked
 
+import torch_threads  # noqa: F401  (torch at one thread)
+
 
 def problems(seed, P, R, C, kind="uniform", mask_p=(0.8, 0.8)):
     rng = np.random.default_rng(seed)

@@ -30,6 +30,8 @@ from motcpp_tpu_torch.parallel.streams import (
     make_rollout_general,
 )
 
+import torch_threads  # noqa: F401  (torch at one thread)
+
 T, S, N, HW, D = 3, 4, 4, (32, 16), 32
 CFG = dict(with_reid=True, emb_dim=D, max_tracks=16, max_dets=N)
 
@@ -128,8 +130,8 @@ def test_runner_rejects_what_is_not_ported(scene):
         MultiStreamRunner(init, step, S, device="cpu",
                           embed_fn=lambda c: c, crop_budget=4,
                           emb_priority=True, emb_cadence=2)
-    with pytest.raises(NotImplementedError, match="cmc_fn"):
-        MultiStreamRunner(init, step, S, device="cpu",
+    with pytest.raises(ValueError, match="cmc_fn replaces the warps"):
+        MultiStreamRunner(init, step, S, device="cpu", with_warps=True,
                           cmc_fn=lambda prev, cur: None)
     with pytest.raises(ValueError, match="emb_cadence requires embed_fn"):
         MultiStreamRunner(init, step, S, device="cpu", emb_cadence=2)
@@ -138,3 +140,5 @@ def test_runner_rejects_what_is_not_ported(scene):
         runner.run(*scene[3:5], embs=scene[5], frame0=1)
     with pytest.raises(ValueError, match="pass embs"):
         runner.run(*scene[3:5])
+    with pytest.raises(ValueError, match="pass frames"):
+        runner.run(*scene[3:5], embs=scene[5], frames=scene[5][..., 0, 0, 0])

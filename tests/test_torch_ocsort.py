@@ -27,6 +27,8 @@ from motcpp_tpu_torch.ops import iou, select
 from motcpp_tpu_torch.parallel.streams import MultiStreamRunner
 from test_torch_golden import check_goldens
 
+import torch_threads  # noqa: F401  (torch at one thread)
+
 INT_FIELDS = ("active", "tid", "age", "hits", "hit_streak", "tsu", "det_ind",
               "obs_age", "obs_ptr", "next_id", "frame_count")
 FLOAT_FIELDS = ("x", "P", "conf", "cls", "last_obs", "velocity", "obs_ring")

@@ -19,6 +19,8 @@ from motcpp_tpu.ops.kalman.gaussian import kf_xyah as jkf
 from motcpp_tpu_torch.ops import boxes, iou, linalg, matching
 from motcpp_tpu_torch.ops.kalman.gaussian import kf_xyah
 
+import torch_threads  # noqa: F401  (torch at one thread)
+
 RTOL, ATOL = 1e-6, 1e-5
 
 

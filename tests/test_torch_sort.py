@@ -31,6 +31,8 @@ from motcpp_tpu_torch.ops.kalman import xysr
 from motcpp_tpu_torch.parallel.streams import MultiStreamRunner
 from test_torch_golden import check_goldens
 
+import torch_threads  # noqa: F401  (torch at one thread)
+
 INT_FIELDS = ("active", "tid", "det_ind", "hits", "tsu", "age", "next_id",
               "frame_count")
 FLOAT_FIELDS = ("x", "P", "ang", "conf", "cls")

@@ -44,6 +44,8 @@ from motcpp_tpu_torch.parallel.streams import (
 )
 from test_torch_golden import check_goldens
 
+import torch_threads  # noqa: F401  (torch at one thread)
+
 HERE = Path(__file__).resolve().parent
 WEIGHTS = HERE / "fixtures" / "osnet_x0_25_converted.npz"
 INT_FIELDS = ("sstate", "tid", "det_ind", "hits", "age", "tsu", "has_feat",

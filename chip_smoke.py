@@ -4,8 +4,10 @@ the sources in this checkout, holds each against its plain PyTorch
 version, drives the ByteTrack, SORT, OC-SORT, DeepOC-SORT, BoostTrack,
 HybridSORT and UCMCTrack multi-stream paths at the bench's shapes, the
 live-ReID BoT-SORT, StrongSORT, DeepOC-SORT, BoostTrack and HybridSORT
-paths at the bench's live-ReID shape and StrongSORT with live camera
-motion from frames, and checks what they emit.
+paths at the bench's live-ReID shape, StrongSORT with live camera
+motion from frames and the serving runtime (TrackingService over the
+native stream mux) at the ByteTrack flagship and at live ReID, and
+checks what they emit.
 
     python3 chip_smoke.py [--baseline OTHER_AUCTION_CU]
 
@@ -21,8 +23,9 @@ float32 convolutions, matrix products do not); TF32 is off only around
 the float32 checks of phases 6 and 8 and the plain versions' timings,
 so those compare float32 arithmetic. Phases:
 
-  1. build the auction kernel (and, in parallel, the OSBlock kernel);
-     print its registers and spills and the card's name and power limit;
+  1. build the auction kernel (and, in parallel, the OSBlock kernel and
+     the native mux); print its registers and spills and the card's name
+     and power limit;
   2. the auction kernel against the plain auction at (K, N) = (64, 32),
      (128, 64), (128, 128), (256, 128) and BoT-SORT's (64, 16), and on
      the edge classes of tests/auction_cases.py (ties, zero benefits of
@@ -98,13 +101,28 @@ so those compare float32 arithmetic. Phases:
      of one frame split among the ECC, the tracker and the auction
      kernel, the live rollout split across two run() calls against a
      rollout fed the same estimator's warps (identical masks, boxes
-     within 1e-4), and a run without camera motion, which must differ.
+     within 1e-4), and a run without camera motion, which must differ;
+ 17. the serving runtime: TrackingService (from_tracker) over the native
+     mux, which must have built and loaded (no Python fallback), every
+     tick's frames submitted untimed, one warm-up tick, each timed tick
+     split into the mux's assemble, the dispatch (copies to the card and
+     launches) and the fetch (the wait for the card and the copy back),
+     stats() and the runner's ms per frame-batch of the same path beside
+     it: the ByteTrack flagship (S=4096, phase 3's frames, T ticks, two
+     auction launches a tick) and BoT-SORT live ReID at cadence 8
+     (phase 7's shape and crops, 256x128 uint8 crops through the mux,
+     only the scheduled slots' crops sent to the card, 16 ticks so every
+     slot embeds twice, six OSBlock and two auction launches a tick),
+     each emitting the runner's masks and ids on the same frames, boxes
+     within 1e-4; then on 8 streams a gappy schedule emits, frame for
+     frame, the dense one's rows bit for bit, and two step_async ticks
+     in flight equal two step() calls.
 
 Any failed check exits nonzero before the result is printed. The last
 line is ``{"ok": true, "device": {...}}``; the line before it is the
 card's name and power limit, and the one before that lists the kernels
 with their times and bounds (those of phases 3 and 7) and their
-launches summed over the main paths of phases 3, 7 and 9-16, each
+launches summed over the main paths of phases 3, 7 and 9-17, each
 counted from zero; before those, the script's wall time.
 """
 
@@ -363,15 +381,18 @@ def run_smoke(baseline=None):
 
     # ---- 1. build (both kernels, one nvcc each, started together) ------
     from motcpp_tpu_torch.appearance import osblock_cuda
+    from motcpp_tpu_torch.serving import mux as serving_mux
 
     def timed(build):
         t0 = time.perf_counter()
         return build(), time.perf_counter() - t0
 
-    with ThreadPoolExecutor(2) as pool:
-        builds = [pool.submit(timed, b)
-                  for b in (auction_cuda.build, osblock_cuda.build)]
-        (lib, build_s), osblock_build = (f.result() for f in builds)
+    # the native mux (g++) builds beside the two kernels (nvcc)
+    with ThreadPoolExecutor(3) as pool:
+        builds = [pool.submit(timed, b) for b in (
+            auction_cuda.build, osblock_cuda.build, serving_mux.build)]
+        (lib, build_s), osblock_build, mux_build = (f.result()
+                                                    for f in builds)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -512,6 +533,10 @@ def run_smoke(baseline=None):
     # ---- 16. live camera motion: bench.py's strongsort_cmc_ecc row --------
     paths["StrongSORT ECC"] = live_ecc_phase(16, smi)
 
+    # ---- 17. the serving runtime: TrackingService over the native mux ------
+    served = serving_phase(17, smi, mux_build, byte["frame_ms"],
+                           live["frame_ms"]["cadence 8"], model)
+
     motion = [p for name, p in paths.items() if not name.endswith("live")]
     live_paths = [p for name, p in paths.items() if name.endswith("live")]
     kernels = [{
@@ -519,7 +544,8 @@ def run_smoke(baseline=None):
         "route": "cuda",
         "source": "motcpp_tpu_torch/csrc/auction.cu",
         "replaces": "motcpp_tpu/ops/auction_pallas.py:66",
-        "launches": sum(p["auction_launches"] for p in paths.values()),
+        "launches": (sum(p["auction_launches"] for p in paths.values())
+                     + served["auction_launches"]),
         "max_abs_err": max([max_err] + [p["auction_err"] for p in motion]
                            + [p["auction"]["auction_err"] for p in live_paths
                               if "auction" in p]),
@@ -533,7 +559,8 @@ def run_smoke(baseline=None):
         "route": "cuda",
         "source": "motcpp_tpu_torch/csrc/osblock.cu",
         "replaces": "motcpp_tpu/appearance/osblock_pallas.py:95",
-        "launches": sum(p["osblock_launches"] for p in live_paths),
+        "launches": (sum(p["osblock_launches"] for p in live_paths)
+                     + served["osblock_launches"]),
         "max_abs_err": max(p["osblock"]["max_err"] for p in live_paths),
         "ms": live["osblock"]["ms"],
         "plain_ms": live["osblock"]["plain_ms"],
@@ -545,6 +572,9 @@ def run_smoke(baseline=None):
         print(f"launches on the {name} path: auction {p['auction_launches']}"
               + (f", OSBlock {p['osblock_launches']}"
                  if "osblock_launches" in p else ""))
+    print(f"launches on the serving paths: auction "
+          f"{served['auction_launches']}, OSBlock "
+          f"{served['osblock_launches']}")
     return kernels, smi
 
 
@@ -631,7 +661,7 @@ def tracker_path(phases, label, n_streams, stage_names, make, card,
           f"{label}: kernel and plain paths emit different ids or boxes")
     print(f"phase {eq_phase} {label} kernel path = plain path on "
           f"{EQUAL_STREAMS} streams: identical ({int(km.sum())} emissions)")
-    return dict(stats, auction_launches=launches)
+    return dict(stats, auction_launches=launches, frame_ms=run_s * 1e3 / T)
 
 
 def auction_on_path(phase, label, stage_names, run_frame, card,
@@ -1037,6 +1067,7 @@ def live_reid_phases(osblock_build, card):
                           crops_all[:LIVE_T])
     counters = (osblock_cuda, auction_cuda)
     want = {osblock_cuda: 6 * LIVE_T, auction_cuda: 2 * LIVE_T}
+    frame_ms = {}
     for label, cadence in (("every frame", None), ("cadence 8", CADENCE)):
         runner = MultiStreamRunner(init, step, LIVE_S, device="cuda",
                                    embed_fn=embed_fn, emb_cadence=cadence)
@@ -1051,6 +1082,7 @@ def live_reid_phases(osblock_build, card):
         per_frame = (LIVE_S * LIVE_N if cadence is None
                      else -(-LIVE_S // cadence) * LIVE_N)
         fps = LIVE_S * LIVE_T / run_s
+        frame_ms[label] = run_s * 1e3 / LIVE_T
         print(f"phase 7 live ReID {label}: S={LIVE_S} N={LIVE_N} K={LIVE_K} "
               f"D={LIVE_D} osnet_x1_0 bf16 {CROP_HW[0]}x{CROP_HW[1]} T={LIVE_T}"
               f": {run_s * 1e3 / LIVE_T:.3f} ms per frame-batch (median "
@@ -1095,7 +1127,7 @@ def live_reid_phases(osblock_build, card):
     print(f"phase 8 live path, kernel vs plain (folded) bf16 embeddings, "
           f"{LIVE_S} streams x {EQUAL_T} frames: {share}")
 
-    return {"model": model, "osblock": block_stats,
+    return {"model": model, "osblock": block_stats, "frame_ms": frame_ms,
             "scene": (dets_all, masks_all, crops_all),
             "osblock_launches": launches[osblock_cuda],
             "auction_launches": launches[auction_cuda]}
@@ -1338,6 +1370,335 @@ def live_ecc_phase(phase, card):
           f"{int(pm.sum())} emissions, {int((pm != lm).sum())} slots differ")
     del frames
     return dict(stats, auction_launches=launches)
+
+
+def serve_ticks(svc, submit, ticks, want):
+    """Drives ``svc`` for ``ticks`` ticks. ``submit(t)`` queues tick t's
+    frames (untimed, as producers would), then one step is timed: the
+    whole tick, its assemble (the mux), its dispatch (the rest of
+    step_async: the copies to the card and the launches) and its fetch
+    (result(): the wait for the card and the copy back), and the bytes
+    sent to the card are counted, with the host time of staging them
+    (part of the dispatch). Each tick must launch each kernel module of
+    ``want`` ({module: count}) that many times. Returns the batches and
+    per tick (tick s, assemble s, dispatch s, fetch s, bytes, staging
+    s)."""
+    assemble, put = svc.mux.assemble, svc._put
+    clock = {}
+
+    def timed_assemble():
+        t0 = time.perf_counter()
+        out = assemble()
+        clock["assemble"] = time.perf_counter() - t0
+        return out
+
+    def counted_put(a, rows=None):
+        t0 = time.perf_counter()
+        out = put(a, rows)
+        clock["staging"] += time.perf_counter() - t0
+        clock["bytes"] += out.numel() * out.element_size()
+        return out
+
+    svc.mux.assemble, svc._put = timed_assemble, counted_put
+    batches, rows = [], []
+    try:
+        for t in range(ticks):
+            submit(t)
+            before = {m: m.LAUNCHES for m in want}
+            clock["bytes"] = clock["staging"] = 0
+            t0 = time.perf_counter()
+            pending = svc.step_async()
+            t1 = time.perf_counter()
+            batches.append(pending.result())
+            t2 = time.perf_counter()
+            for m, n in want.items():
+                check(m.LAUNCHES - before[m] == n, f"serving tick {t}: "
+                      f"{m.LAUNCHES - before[m]} {m.__name__} launches, "
+                      f"want {n}")
+            rows.append((t2 - t0, clock["assemble"],
+                         t1 - t0 - clock["assemble"], t2 - t1,
+                         clock["bytes"], clock["staging"]))
+    finally:
+        del svc.mux.assemble, svc._put
+    return batches, np.asarray(rows)
+
+
+def tick_report(rows):
+    """Median and maximum tick and the medians of its split."""
+    ms = rows[:, :4] * 1e3
+    med = np.median(ms, 0)
+    return (f"tick median {med[0]:.3f} ms, max {ms[:, 0].max():.3f} ms "
+            f"(ticks {[round(float(x), 1) for x in ms[:, 0]]}); split "
+            f"(medians): assemble {med[1]:.3f} ms, dispatch {med[2]:.3f} ms "
+            f"(of it staging the copies to the card "
+            f"{np.median(rows[:, 5]) * 1e3:.3f} ms), fetch {med[3]:.3f} ms; "
+            f"{rows[:, 4].mean() / 1e6:.3f} MB sent to the card a tick")
+
+
+def profile_tick(svc, submit):
+    """torch.profiler over one step() after ``submit()``: the tick's wall
+    under the profiler, the kernels' device time and count, the device
+    time of each kind of copy and fill the trace names, and the share of
+    the wall in which the device was busy. Where the trace names no copy
+    to the card, the tick's copies to the card are timed apart (the same
+    shapes from pinned memory, CUDA events) and added to the busy time,
+    so that the share counts every copy the tick makes."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    sent = []  # what the tick copies to the card
+    put = svc._put
+
+    def recording_put(a, rows=None):
+        out = put(a, rows)
+        sent.append(out)
+        return out
+
+    submit()
+    torch.cuda.synchronize()
+    svc._put = recording_put
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            svc.step()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    finally:
+        del svc._put
+    on_device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not on_device:
+        return "profiler recorded no device time: split not measured"
+
+    copies = {}  # the device's copies and fills, by the trace's name
+    for e in on_device:
+        if "Memcpy" in e.name or "Memset" in e.name:
+            copies[e.name] = (copies.get(e.name, 0)
+                              + e.time_range.elapsed_us())
+    kernels = [e for e in on_device if e.name not in copies]
+    kernel_us = sum(e.time_range.elapsed_us() for e in kernels)
+    busy = kernel_us + sum(copies.values())
+    listed = ", ".join(f"{name} {t / 1e3:.3f} ms"
+                       for name, t in copies.items()) or "none recorded"
+    report = (f"wall {wall_us / 1e3:.3f} ms under the profiler, device busy "
+              f"{busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f}% of wall): "
+              f"{len(kernels)} kernels {kernel_us / 1e3:.3f} ms; copies and "
+              f"fills: {listed}")
+    if any("HtoD" in name for name in copies):
+        return report
+    staged = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+              for t in sent]
+    h2d_us = 1e3 * cuda_ms(
+        lambda: [b.to("cuda", non_blocking=True) for b in staged], 5)
+    nbytes = sum(t.numel() * t.element_size() for t in sent)
+    busy += h2d_us
+    return (f"{report}; the trace names no copy to the card, so the tick's "
+            f"{len(sent)} copies to the card ({nbytes / 1e6:.3f} MB) were "
+            f"timed apart from pinned memory: {h2d_us / 1e3:.3f} ms; device "
+            f"busy with them {busy / 1e3:.3f} ms "
+            f"({100 * busy / wall_us:.1f}% of wall)")
+
+
+def check_served(label, batches, want_o, want_m, atol=1e-4):
+    """The served emissions against the runner's on the same frames:
+    identical masks and ids, boxes within ``atol``; returns the
+    emissions and the largest difference."""
+    got_m = np.stack([b.out_masks for b in batches])
+    got_o = np.stack([b.outs for b in batches])
+    wm, wo = want_m.cpu().numpy(), want_o.cpu().numpy()
+    check(np.array_equal(got_m, wm), f"{label}: served masks differ from "
+          f"the runner's in {int((got_m != wm).sum())} slots")
+    g, w = got_o[got_m], wo[wm]
+    check(np.array_equal(g[:, 4], w[:, 4]),
+          f"{label}: served ids differ from the runner's")
+    err = float(np.abs(g - w).max()) if g.size else 0.0
+    check(err <= atol, f"{label}: served rows differ from the runner's by "
+          f"{err:.2e} (> {atol})")
+    check(int(got_m.sum()) > 0, f"{label}: no emissions")
+    return int(got_m.sum()), err
+
+
+def serving_phase(phase, card, mux_build, runner_ms, live_runner_ms, model):
+    """Phase ``phase``: the serving runtime. TrackingService over the
+    native mux (its build checked; no Python fallback), each tick's
+    frames submitted untimed and one warm-up tick before the timed ones:
+    (1) the ByteTrack flagship, S=4096 streams of phase 3's frames (and
+    one more), T timed ticks, 2 auction launches a tick; (2) BoT-SORT
+    live ReID at cadence 8 (S=128, N=16, osnet_x1_0 bf16 fused, 256x128
+    uint8 crops through the mux, only the scheduled slots' crops sent to
+    the card), 2*CADENCE timed ticks so that every slot embeds twice, 6
+    OSBlock and 2 auction launches a tick. Each tick timed and split,
+    stats() printed, the runner's ms per frame-batch of the same path
+    beside it, and the emissions held against the runner's on the same
+    frames (and crops). (3) A gappy schedule on 8 streams emits, frame
+    for frame, what the dense one emits, bit for bit, and two ticks
+    dispatched with step_async before either result() equal two step()
+    calls. Returns the kernels' launches on (1) and (2)."""
+    from motcpp_tpu_torch.appearance import osblock_cuda
+    from motcpp_tpu_torch.appearance.reid import make_embed_fn
+    from motcpp_tpu_torch.data import pack_valid_rows, synth_stream_dets
+    from motcpp_tpu_torch.models.botsort import BotSortConfig, make_botsort
+    from motcpp_tpu_torch.models.bytetrack import (
+        ByteTrackConfig,
+        make_bytetrack,
+    )
+    from motcpp_tpu_torch.ops import auction_cuda
+    from motcpp_tpu_torch.parallel.streams import MultiStreamRunner
+    from motcpp_tpu_torch.serving import StreamMux, TrackingService
+
+    path, build_s = mux_build
+    print(f"phase {phase} build: {path.name} (g++) in {build_s:.2f} s")
+
+    def service(*args, **kw):
+        svc = TrackingService.from_tracker(*args, device="cuda", **kw)
+        check(isinstance(svc.mux, StreamMux),
+              "the service runs the Python mux: the native mux did not load")
+        return svc
+
+    # ---- (1) the ByteTrack flagship ----------------------------------------
+    # phase 3's frames, one more for the warm-up and one to profile
+    dets, masks, _ = pack_valid_rows(*synth_stream_dets(
+        np.random.default_rng(0), T + 2, S, N, n_obj=N_OBJ))
+    counts = masks.sum(-1)
+    init, step = make_bytetrack(ByteTrackConfig(
+        max_tracks=K, max_dets=N, lap_impl="auction_pallas"), device="cuda")
+    svc = service("bytetrack", S, max_dets=N, tracker_kw=dict(
+        max_tracks=K, lap_impl="auction_pallas"))
+    hs = [svc.attach() for _ in range(S)]
+
+    def submit(t):
+        for s, h in enumerate(hs):
+            svc.submit(h, dets[t, s, :counts[t, s]])
+
+    auction_cuda.LAUNCHES = 0
+    batches, rows = serve_ticks(svc, submit, T + 1, {auction_cuda: 2})
+    auction_launches = auction_cuda.LAUNCHES
+    stats = svc.stats()
+    profiled = profile_tick(svc, lambda: submit(T + 1))
+    want = MultiStreamRunner(init, step, S, device="cuda").run(
+        dets[:T + 1], masks[:T + 1])
+    emitted, err = check_served("ByteTrack serving", batches, *want)
+    tick_s = float(np.median(rows[1:, 0]))
+    print(f"phase {phase} serving ByteTrack S={S} K={K} N={N}, {T} ticks "
+          f"after one warm-up: {tick_report(rows[1:])}; {S / tick_s / 30:.0f}"
+          f" streams at 30 FPS; the runner on the same path (phase 3) "
+          f"{runner_ms:.3f} ms per frame-batch; stats {stats}; emissions = "
+          f"the runner's on the same frames ({emitted}, boxes within "
+          f"{err:.2e}); auction launches {auction_launches} (2 a tick); "
+          f"card: {card}")
+    print(f"phase {phase} serving ByteTrack profile of one tick: {profiled}")
+    del svc, batches, want
+
+    # ---- (2) BoT-SORT live ReID at cadence 8 -------------------------------
+    ticks = 2 * CADENCE + 1
+    dets, masks, order = pack_valid_rows(*synth_stream_dets(
+        np.random.default_rng(0), ticks + 1, LIVE_S, LIVE_N,
+        n_obj=LIVE_OBJ))
+    counts = masks.sum(-1)
+    # phase 7's crops: frame t's are crops0 rolled by t along the streams
+    crops0 = torch.randint(0, 256, (LIVE_S, LIVE_N, *CROP_HW, 3),
+                           dtype=torch.uint8, device="cuda",
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(0))
+    crops_host = crops0.cpu().numpy()
+    embed = make_embed_fn(model, compute_dtype="bfloat16", fused=True,
+                          device="cuda")
+    init, step = make_botsort(BotSortConfig(
+        with_reid=True, emb_dim=LIVE_D, max_tracks=LIVE_K, max_dets=LIVE_N,
+        lap_impl="auction_pallas"), device="cuda")
+    svc = service("botsort", LIVE_S, max_dets=LIVE_N, emb_dim=LIVE_D,
+                  tracker_kw=dict(with_reid=True, max_tracks=LIVE_K,
+                                  lap_impl="auction_pallas"),
+                  crop_hw=CROP_HW, embed_fn=embed, emb_cadence=CADENCE)
+    check(svc._cad_compact, "cadence_compact is off")
+    hs = [svc.attach() for _ in range(LIVE_S)]
+
+    def submit_live(t):
+        for s, h in enumerate(hs):
+            n = counts[t, s]
+            svc.submit(h, dets[t, s, :n], crops=crops_host[
+                (s - t) % LIVE_S][order[t, s, :n]])
+
+    osblock_cuda.LAUNCHES = auction_cuda.LAUNCHES = 0
+    batches, rows = serve_ticks(svc, submit_live, ticks,
+                                {osblock_cuda: 6, auction_cuda: 2})
+    live_launches = (osblock_cuda.LAUNCHES, auction_cuda.LAUNCHES)
+    stats = svc.stats()
+    profiled = profile_tick(svc, lambda: submit_live(ticks))
+    del svc
+    runner = MultiStreamRunner(init, step, LIVE_S, device="cuda",
+                               embed_fn=embed, emb_cadence=CADENCE)
+    ar = torch.arange(LIVE_S, device="cuda")[:, None]
+    parts = []
+    for t in range(ticks):
+        crops_t = torch.roll(crops0, t, 0)[
+            ar, torch.from_numpy(order[t]).cuda()]
+        parts.append(runner.run(dets[t:t + 1], masks[t:t + 1],
+                                embs=crops_t[None]))
+    want = [torch.cat([p[i] for p in parts]) for i in range(2)]
+    emitted, err = check_served("BoT-SORT live serving", batches, *want)
+    tick_s = float(np.median(rows[1:, 0]))
+    print(f"phase {phase} serving BoT-SORT live ReID cadence {CADENCE} "
+          f"S={LIVE_S} N={LIVE_N} K={LIVE_K} D={LIVE_D} osnet_x1_0 bf16 "
+          f"{CROP_HW[0]}x{CROP_HW[1]} crops through the mux, "
+          f"{ticks - 1} ticks after one warm-up: {tick_report(rows[1:])}; "
+          f"{LIVE_S / tick_s / 30:.2f} streams at 30 FPS; the runner on the "
+          f"same path (phase 7) {live_runner_ms:.3f} ms per frame-batch; "
+          f"stats {stats}; emissions = the runner's on the same crops "
+          f"({emitted}, boxes within {err:.2e}); launches OSBlock "
+          f"{live_launches[0]}, auction {live_launches[1]} (6 and 2 a tick); "
+          f"card: {card}")
+    print(f"phase {phase} serving BoT-SORT live profile of one tick: "
+          f"{profiled}")
+    del batches, want, parts, crops0, crops_host
+
+    # ---- (3) gappy schedule and pipelined dispatch on 8 streams ------------
+    gappy = [1, 0, 1, 1, 0, 0, 1, 1, 1, 0, 1, 1]
+    dets, masks, _ = pack_valid_rows(*synth_stream_dets(
+        np.random.default_rng(0), 8, 4, N, n_obj=N_OBJ))
+    counts = masks.sum(-1)
+    runs = {}
+    for mode in ("step", "pipelined"):
+        svc = service("bytetrack", 8, max_dets=N, tracker_kw=dict(
+            max_tracks=K, lap_impl="auction_pallas"))
+        hs = [svc.attach() for _ in range(8)]
+        batches, pending, seen = [], [], 0
+        for t, has in enumerate(gappy):
+            for s in range(4):  # streams 0-3 dense, 4-7 gappy
+                if t < 8:
+                    svc.submit(hs[s], dets[t, s, :counts[t, s]])
+                if has:
+                    svc.submit(hs[s + 4], dets[seen, s, :counts[seen, s]])
+            seen += has
+            if mode == "step":
+                batches.append(svc.step())
+                continue
+            pending.append(svc.step_async())
+            if len(pending) == 2:  # two ticks in flight, then both resolved
+                batches += [p.result() for p in pending]
+                pending = []
+        runs[mode] = batches
+    for a, b in zip(runs["step"], runs["pipelined"]):
+        check(np.array_equal(a.outs, b.outs)
+              and np.array_equal(a.out_masks, b.out_masks),
+              "two step_async ticks in flight differ from two step()s")
+    dense = [b for b in runs["step"] if b.present[0]]
+    sparse = [b for b in runs["step"] if b.present[4]]
+    check(len(dense) == len(sparse) == 8, "the schedules did not run")
+    same = emitted = 0
+    for a, b in zip(dense, sparse):
+        for s in range(4):
+            ra = a.outs[s][a.out_masks[s]]
+            rb = b.outs[s + 4][b.out_masks[s + 4]]
+            same += ra.shape == rb.shape and ra.tobytes() == rb.tobytes()
+            emitted += ra.shape[0]
+    check(same == 32 and emitted > 0, f"gappy streams differ from dense "
+          f"streams on {32 - same} of 32 frames")
+    print(f"phase {phase} serving gappy schedule {gappy} on streams 4-7 = "
+          f"dense streams 0-3, frame for frame, bit for bit ({emitted} "
+          f"emissions); two step_async ticks in flight = two step()s on "
+          f"all {len(gappy)} ticks")
+    return {"auction_launches": auction_launches + live_launches[1],
+            "osblock_launches": live_launches[0]}
 
 
 def main(argv=None):

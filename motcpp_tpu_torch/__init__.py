@@ -9,8 +9,9 @@ Ported: the nine trackers with their host wrappers and the per-class
 wrapper, the eval CLI, the host camera-motion estimators and the
 sparse-flow and ECC ones in torch, OSNet live ReID (every OSBlock
 through a CUDA kernel on the card; every frame, at a cadence or at a
-priority budget) and the single-device multi-stream runner with live
-camera motion from frames.
+priority budget), the single-device multi-stream runner with live
+camera motion from frames, and the serving runtime on one device (the
+native stream mux and ``serving.TrackingService``).
 """
 
 __all__ = ["create_tracker", "TRACKERS"]

@@ -2,7 +2,9 @@
 
 The kernels' wrappers bind the library through ctypes (a plain C
 interface, so ``nvcc`` takes seconds, not the minutes a source that
-includes PyTorch's headers takes). Each library lands in
+includes PyTorch's headers takes); the serving mux builds its C++
+source (``native/motcpp_mux.cpp``) the same way with ``g++``. Each
+library lands in
 ``motcpp_tpu_torch/_build/`` under a name keyed on a hash of its source
 and flags, so an edited source or flag set is rebuilt and an unchanged
 one is reused. Nothing here runs at import.
@@ -34,23 +36,29 @@ def nvcc() -> str:
     return str(path)
 
 
-def build(source: Path, flags: tuple, name: str) -> Path:
+def build(source: Path, flags: tuple, name: str,
+          compiler: str | None = None) -> Path:
     """Compile ``source`` with ``flags`` into ``lib<name>_<hash>.so``
-    unless that library exists; returns its path. The compiler's
-    messages (``-Xptxas -v`` among the flags puts each kernel's
-    registers and spills there) are kept beside it as ``.log``."""
+    unless that library exists; returns its path. ``compiler`` defaults
+    to :func:`nvcc`. The compiler's messages (``-Xptxas -v`` among the
+    flags puts each kernel's registers and spills there) are kept beside
+    it as ``.log``. The library is written under a name of this process
+    and renamed into place, so concurrent builds never load a half-written
+    file."""
     key = hashlib.sha256(source.read_bytes() + " ".join(flags).encode())
     out = BUILD_DIR / f"lib{name}_{key.hexdigest()[:16]}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cc = compiler or nvcc()
     proc = subprocess.run(
-        [nvcc(), *flags, "-o", str(tmp), str(source)],
+        [cc, *flags, "-o", str(tmp), str(source)],
         capture_output=True, text=True,
     )
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {source}:\n{proc.stderr}")
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"{cc} failed on {source}:\n{proc.stderr}")
     out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
     os.replace(tmp, out)
     return out

@@ -5,6 +5,7 @@ the port imports nothing of it."""
 from motcpp_tpu_torch.data.mot17 import MOT17Dataset, SequenceInfo, read_gt_max_frame
 from motcpp_tpu_torch.data.mot_format import convert_to_mot_format, write_mot_results
 from motcpp_tpu_torch.data.synthetic import (
+    pack_valid_rows,
     pan_frames,
     pan_texture,
     synth_stream_dets,
@@ -14,6 +15,7 @@ __all__ = [
     "MOT17Dataset",
     "SequenceInfo",
     "convert_to_mot_format",
+    "pack_valid_rows",
     "pan_frames",
     "pan_texture",
     "read_gt_max_frame",

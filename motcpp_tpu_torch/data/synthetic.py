@@ -3,9 +3,10 @@
 ``synth_stream_dets`` is a copy of ``bench.py::synth_stream_dets``: S
 streams of n_obj jittered constant-velocity boxes over T frames, each box
 missing in 5% of frames, drawn from a NumPy generator so that the JAX
-package and the port see the same input. ``pan_frames`` makes the live
-camera-motion frames of ``bench.py:269-294`` from a torch generator, on
-the generator's device.
+package and the port see the same input; ``pack_valid_rows`` lays them
+out as the serving mux assembles submitted frames. ``pan_frames`` makes
+the live camera-motion frames of ``bench.py:269-294`` from a torch
+generator, on the generator's device.
 """
 
 from __future__ import annotations
@@ -37,6 +38,19 @@ def synth_stream_dets(rng, T, S, N, n_obj=16, img_w=1920, img_h=1080):
         dets[t, :, :n_obj, 4] = conf
         masks[t, :, :n_obj] = visible
     return dets, masks
+
+
+def pack_valid_rows(dets, masks, *more):
+    """Each frame's valid rows moved to the front in their order, as the
+    serving mux lays out a submitted frame (its first n rows valid).
+    dets (T, S, N, ...), masks (T, S, N) and each of ``more`` (T, S, N,
+    ...) are numpy arrays; returns them reordered, then the order
+    (T, S, N)."""
+    order = np.argsort(~masks, axis=-1, kind="stable")
+    out = [np.take_along_axis(a, order.reshape(order.shape
+                                               + (1,) * (a.ndim - 3)), 2)
+           for a in (dets, masks) + more]
+    return (*out, order)
 
 
 def pan_texture(S, h, w, gen):

@@ -13,7 +13,12 @@ import pytest
 import torch
 
 from auction_cases import EDGE_CASES, edge_case
-from motcpp_tpu_torch.data import pan_frames, pan_texture, synth_stream_dets
+from motcpp_tpu_torch.data import (
+    pack_valid_rows,
+    pan_frames,
+    pan_texture,
+    synth_stream_dets,
+)
 from motcpp_tpu_torch.models.bytetrack import ByteTrackConfig, make_bytetrack
 from motcpp_tpu_torch.ops import auction, auction_cuda
 from motcpp_tpu_torch.parallel.streams import MultiStreamRunner
@@ -487,3 +492,97 @@ def test_osblock_wrapper_checks_its_inputs(cuda):
             .view(2, 8, 4, w.cin))
     with pytest.raises(ValueError, match="exceed the kernel's tile"):
         osblock_cuda.osblock(w, torch.zeros((1, 2, 130, w.cin), device=cuda))
+
+
+def serve(svc, dets, masks, crops=None, pipelined=False):
+    """Every stream's frames through the service, one tick a frame (two
+    ticks in flight when ``pipelined``); returns (outs, out_masks) of
+    all ticks, (T, S, K, 8) and (T, S, K). On a CUDA device each tick's
+    dispatch runs in sync debug mode "error": a step_async that waited
+    for the device or read a value back would raise."""
+    hs = [svc.attach() for _ in range(dets.shape[1])]
+    pend, got = [], []
+    for t in range(dets.shape[0]):
+        for s, h in enumerate(hs):
+            n = int(masks[t, s].sum())
+            svc.submit(h, dets[t, s, :n],
+                       crops=None if crops is None else crops[t, s, :n])
+        if svc.device.type == "cuda":
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            pend.append(svc.step_async())
+        finally:
+            if svc.device.type == "cuda":
+                torch.cuda.set_sync_debug_mode("default")
+        if len(pend) == (2 if pipelined else 1):
+            got.append(pend.pop(0).result())
+    got += [p.result() for p in pend]
+    return (np.stack([b.outs for b in got]),
+            np.stack([b.out_masks for b in got]))
+
+
+def test_service_on_the_card_equals_the_runner(cuda):
+    """The serving tick on the card through the auction kernel (two
+    launches a tick): every stream's frames through the native mux give
+    the runner's emissions on the same (packed) frames, bit for bit, also
+    with two ticks in flight; dispatching a tick neither waits for the
+    device nor reads a value back (CUDA sync debug mode "error")."""
+    from motcpp_tpu_torch.serving import StreamMux, TrackingService
+
+    S, K, N, T = 16, 64, 32, 10
+    dets, masks, _ = pack_valid_rows(*synth_stream_dets(
+        np.random.default_rng(0), T, S, N))
+    init, step = make_bytetrack(ByteTrackConfig(
+        max_tracks=K, max_dets=N, lap_impl="auction_pallas"), device=cuda)
+    want_o, want_m = MultiStreamRunner(init, step, S, device=cuda).run(
+        dets, masks)
+    for pipelined in (False, True):
+        svc = TrackingService(init, step, S, max_dets=N, device=cuda)
+        assert isinstance(svc.mux, StreamMux)
+        before = auction_cuda.LAUNCHES
+        outs, out_masks = serve(svc, dets, masks, pipelined=pipelined)
+        assert auction_cuda.LAUNCHES - before == 2 * T
+        assert int(out_masks.sum()) > 0
+        np.testing.assert_array_equal(out_masks, want_m.cpu().numpy())
+        np.testing.assert_array_equal(outs[out_masks],
+                                      want_o.cpu().numpy()[out_masks])
+
+
+def test_live_service_on_the_card_equals_the_runner(cuda):
+    """Live ReID through the service on the card at BoT-SORT's deployed
+    cadence (k=8, 64x32 crops, osnet_x0_25 bf16 fused): only the
+    scheduled slots' crops are sent, every tick launches the OSBlock
+    kernel 6 times and the auction kernel twice, the emissions equal the
+    runner's on the same crops bit for bit, and dispatch does not
+    synchronise."""
+    from motcpp_tpu_torch.appearance import osblock_cuda
+    from motcpp_tpu_torch.appearance.osnet import init_params, osnet_x0_25
+    from motcpp_tpu_torch.appearance.reid import make_embed_fn
+    from motcpp_tpu_torch.models.botsort import BotSortConfig, make_botsort
+    from motcpp_tpu_torch.serving import TrackingService
+
+    S, N, T, D, k, hw = 16, 16, 10, 512, 8, (64, 32)
+    dets, masks = synth_stream_dets(np.random.default_rng(0), T, S, N,
+                                    n_obj=14)
+    crops = np.random.default_rng(1).integers(
+        0, 256, (T, S, N) + hw + (3,), dtype=np.uint8)
+    dets, masks, crops, _ = pack_valid_rows(dets, masks, crops)
+    embed = make_embed_fn(init_params(osnet_x0_25(feature_dim=D), seed=0),
+                          compute_dtype="bfloat16", fused=True, device=cuda)
+    init, step = make_botsort(BotSortConfig(
+        with_reid=True, emb_dim=D, max_tracks=64, max_dets=N,
+        lap_impl="auction_pallas"), device=cuda)
+    want_o, want_m = MultiStreamRunner(
+        init, step, S, device=cuda, embed_fn=embed, emb_cadence=k).run(
+        dets, masks, embs=crops)
+    svc = TrackingService(init, step, S, max_dets=N, emb_dim=D, device=cuda,
+                          crop_hw=hw, embed_fn=embed, emb_cadence=k)
+    assert svc._cad_compact
+    before = (osblock_cuda.LAUNCHES, auction_cuda.LAUNCHES)
+    outs, out_masks = serve(svc, dets, masks, crops)
+    assert (osblock_cuda.LAUNCHES - before[0],
+            auction_cuda.LAUNCHES - before[1]) == (6 * T, 2 * T)
+    assert int(out_masks.sum()) > 0
+    np.testing.assert_array_equal(out_masks, want_m.cpu().numpy())
+    np.testing.assert_array_equal(outs[out_masks],
+                                  want_o.cpu().numpy()[out_masks])

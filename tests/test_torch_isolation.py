@@ -171,3 +171,25 @@ def test_cpu_is_used_only_when_asked(no_cuda):
     tr = create_tracker("bytetrack", device="cpu")
     out = tr.update(np.array([[10, 10, 50, 90, 0.9, 0]], np.float32))
     assert out.shape == (1, 8)
+
+
+def test_serving_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
+    from motcpp_tpu_torch.models.bytetrack import (
+        ByteTrackConfig,
+        make_bytetrack,
+    )
+    from motcpp_tpu_torch.serving import TrackingService
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TrackingService.from_tracker("bytetrack", n_streams=2)
+    init, step = make_bytetrack(ByteTrackConfig(), device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TrackingService(init, step, 2)
+    svc = TrackingService.from_tracker("bytetrack", n_streams=2,
+                                       device="cpu")
+    assert svc.device.type == "cpu"
+    h = svc.attach()
+    svc.submit(h, np.array([[10, 10, 50, 90, 0.9, 0]], np.float32))
+    batch = svc.step()
+    assert batch.tracks_for(h).shape == (1, 8)
+    assert all(t.device.type == "cpu" for t in svc.states)

@@ -5,9 +5,11 @@ version, drives the ByteTrack, SORT, OC-SORT, DeepOC-SORT, BoostTrack,
 HybridSORT and UCMCTrack multi-stream paths at the bench's shapes, the
 live-ReID BoT-SORT, StrongSORT, DeepOC-SORT, BoostTrack and HybridSORT
 paths at the bench's live-ReID shape, StrongSORT with live camera
-motion from frames and the serving runtime (TrackingService over the
-native stream mux) at the ByteTrack flagship and at live ReID, and
-checks what they emit.
+motion from frames, the serving runtime (TrackingService over the
+native stream mux) at the ByteTrack flagship and at live ReID, and the
+utilities (configs read without PyYAML, the eval CLI's goldens and the
+MOT metrics, checkpoint failover, profiling, the ReID warm-up, the native
+IO), and checks what they emit.
 
     python3 chip_smoke.py [--baseline OTHER_AUCTION_CU]
 
@@ -23,9 +25,9 @@ float32 convolutions, matrix products do not); TF32 is off only around
 the float32 checks of phases 6 and 8 and the plain versions' timings,
 so those compare float32 arithmetic. Phases:
 
-  1. build the auction kernel (and, in parallel, the OSBlock kernel and
-     the native mux); print its registers and spills and the card's name
-     and power limit;
+  1. build the auction kernel (and, in parallel, the OSBlock kernel, the
+     native mux and the native IO library); print its registers and
+     spills and the card's name and power limit;
   2. the auction kernel against the plain auction at (K, N) = (64, 32),
      (128, 64), (128, 128), (256, 128) and BoT-SORT's (64, 16), and on
      the edge classes of tests/auction_cases.py (ties, zero benefits of
@@ -116,25 +118,53 @@ so those compare float32 arithmetic. Phases:
      each emitting the runner's masks and ids on the same frames, boxes
      within 1e-4; then on 8 streams a gappy schedule emits, frame for
      frame, the dense one's rows bit for bit, and two step_async ticks
-     in flight equal two step() calls.
+     in flight equal two step() calls; FrameTimer times the same ticks;
+ 18. the utilities: (a) whether PyYAML imports here, the nine configs
+     through the port's reader, and scripts/tune.py's loop for ByteTrack
+     (max_dets=max_tracks=128, the auction kernel) over MOT17-mini's
+     first 8 frames for the YAML defaults and 3 seeded draws, scored by
+     the port's metrics: rows and HOTA, MOTA, IDF1 equal to the same
+     loop on the CPU (the plain auction); (b) the eval CLI writes the
+     tests/golden_long sets (--no-ablation --limit-frames 150,
+     max_dets=max_tracks=128) of SORT, ByteTrack, OC-SORT, StrongSORT and
+     BoT-SORT (tests/test_torch_cuda.py runs the other four through the
+     CLI on the card) through the native writer, byte for byte, and
+     their scores equal tests/accuracy_mot17mini.json, with the wall
+     time; (c) checkpoint failover through TrackingService in
+     both formats (.npz and a torch file): the ByteTrack flagship (S=4096,
+     phase 3's frames, 20 ticks cut after 10) and BoT-SORT live ReID at
+     cadence 8 (phase 7's shape and crops, 16 ticks cut after 8, a
+     multiple of the cadence: the tick is not in the state), each
+     continuation equal to the uninterrupted run bit for bit, with each
+     file's size and its save and load times; (d) one flagship tick and
+     one live tick under utils/profiling.py::trace, whose exported traces
+     must name the auction kernel (and the live one the OSBlock kernel),
+     and FrameTimer's p50 of phase 17's ticks beside phase 17's median;
+     (e) ReIDBackend.warmup() on the card runs the unfolded forward (no
+     kernel launch, as the JAX backend's Flax module) and embeds its
+     batch as the CPU does within 1e-3; (f) the native parser equals the
+     Python parser on both MOT17-mini det.txt files.
 
 Any failed check exits nonzero before the result is printed. The last
 line is ``{"ok": true, "device": {...}}``; the line before it is the
 card's name and power limit, and the one before that lists the kernels
 with their times and bounds (those of phases 3 and 7) and their
-launches summed over the main paths of phases 3, 7 and 9-17, each
+launches summed over the main paths of phases 3, 7 and 9-18, each
 counted from zero; before those, the script's wall time.
 """
 
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 # the run and its result line describe one card: unless the caller chose
 # the visible devices, use the first
@@ -181,6 +211,17 @@ OC_S = 2048  # bench.py's default stream count (all but SORT and ByteTrack)
 # bench.py's live-CMC row (strongsort_cmc_ecc): 512 streams, frames at the
 # reference's CMC scale
 CMC_S, CMC_SCALE = 512, 0.15
+TESTS = Path(__file__).resolve().parent / "tests"
+MOT_MINI = Path(__file__).resolve().parent / "assets" / "MOT17-mini" / "train"
+TRACKER_NAMES = ("sort", "bytetrack", "ocsort", "deepocsort", "strongsort",
+                 "botsort", "boosttrack", "hybridsort", "ucmctrack")
+# the trackers whose golden_long sets phase 18 writes through the CLI: on
+# an H100 (700 W) all nine took 154.5 s, so the four that
+# tests/test_torch_cuda.py already runs through the CLI on the card
+# (DeepOC-SORT, BoostTrack, HybridSORT, UCMCTrack) are left to it
+CLI_TRACKERS = ("sort", "bytetrack", "ocsort", "strongsort", "botsort")
+TUNE_FRAMES = 8  # scripts/tune.py's default: the bundled GT spans 8 frames
+FAILOVER_TICKS = 20  # the flagship failover's ticks, cut in the middle
 
 
 class SmokeFailure(Exception):
@@ -382,17 +423,20 @@ def run_smoke(baseline=None):
     # ---- 1. build (both kernels, one nvcc each, started together) ------
     from motcpp_tpu_torch.appearance import osblock_cuda
     from motcpp_tpu_torch.serving import mux as serving_mux
+    from motcpp_tpu_torch.utils import native_io
 
     def timed(build):
         t0 = time.perf_counter()
         return build(), time.perf_counter() - t0
 
-    # the native mux (g++) builds beside the two kernels (nvcc)
-    with ThreadPoolExecutor(3) as pool:
+    # the native mux and IO libraries (g++) build beside the two kernels
+    # (nvcc)
+    with ThreadPoolExecutor(4) as pool:
         builds = [pool.submit(timed, b) for b in (
-            auction_cuda.build, osblock_cuda.build, serving_mux.build)]
-        (lib, build_s), osblock_build, mux_build = (f.result()
-                                                    for f in builds)
+            auction_cuda.build, osblock_cuda.build, serving_mux.build,
+            native_io.build)]
+        (lib, build_s), osblock_build, mux_build, io_build = (
+            f.result() for f in builds)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -537,6 +581,10 @@ def run_smoke(baseline=None):
     served = serving_phase(17, smi, mux_build, byte["frame_ms"],
                            live["frame_ms"]["cadence 8"], model)
 
+    # ---- 18. configs, the CLI's goldens, checkpoint failover, profiling,
+    #      the ReID warm-up and the native IO --------------------------------
+    utils = utilities_phase(18, smi, io_build, model, served["timers"])
+
     motion = [p for name, p in paths.items() if not name.endswith("live")]
     live_paths = [p for name, p in paths.items() if name.endswith("live")]
     kernels = [{
@@ -545,7 +593,8 @@ def run_smoke(baseline=None):
         "source": "motcpp_tpu_torch/csrc/auction.cu",
         "replaces": "motcpp_tpu/ops/auction_pallas.py:66",
         "launches": (sum(p["auction_launches"] for p in paths.values())
-                     + served["auction_launches"]),
+                     + served["auction_launches"]
+                     + utils["auction_launches"]),
         "max_abs_err": max([max_err] + [p["auction_err"] for p in motion]
                            + [p["auction"]["auction_err"] for p in live_paths
                               if "auction" in p]),
@@ -560,7 +609,8 @@ def run_smoke(baseline=None):
         "source": "motcpp_tpu_torch/csrc/osblock.cu",
         "replaces": "motcpp_tpu/appearance/osblock_pallas.py:95",
         "launches": (sum(p["osblock_launches"] for p in live_paths)
-                     + served["osblock_launches"]),
+                     + served["osblock_launches"]
+                     + utils["osblock_launches"]),
         "max_abs_err": max(p["osblock"]["max_err"] for p in live_paths),
         "ms": live["osblock"]["ms"],
         "plain_ms": live["osblock"]["plain_ms"],
@@ -575,6 +625,8 @@ def run_smoke(baseline=None):
     print(f"launches on the serving paths: auction "
           f"{served['auction_launches']}, OSBlock "
           f"{served['osblock_launches']}")
+    print(f"launches on phase 18's paths: auction "
+          f"{utils['auction_launches']}, OSBlock {utils['osblock_launches']}")
     return kernels, smi
 
 
@@ -1372,7 +1424,7 @@ def live_ecc_phase(phase, card):
     return dict(stats, auction_launches=launches)
 
 
-def serve_ticks(svc, submit, ticks, want):
+def serve_ticks(svc, submit, ticks, want, timer=None):
     """Drives ``svc`` for ``ticks`` ticks. ``submit(t)`` queues tick t's
     frames (untimed, as producers would), then one step is timed: the
     whole tick, its assemble (the mux), its dispatch (the rest of
@@ -1380,9 +1432,10 @@ def serve_ticks(svc, submit, ticks, want):
     (result(): the wait for the card and the copy back), and the bytes
     sent to the card are counted, with the host time of staging them
     (part of the dispatch). Each tick must launch each kernel module of
-    ``want`` ({module: count}) that many times. Returns the batches and
-    per tick (tick s, assemble s, dispatch s, fetch s, bytes, staging
-    s)."""
+    ``want`` ({module: count}) that many times. ``timer``
+    (utils/profiling.py::FrameTimer) also times every tick after the
+    first. Returns the batches and per tick (tick s, assemble s,
+    dispatch s, fetch s, bytes, staging s)."""
     assemble, put = svc.mux.assemble, svc._put
     clock = {}
 
@@ -1406,11 +1459,13 @@ def serve_ticks(svc, submit, ticks, want):
             submit(t)
             before = {m: m.LAUNCHES for m in want}
             clock["bytes"] = clock["staging"] = 0
-            t0 = time.perf_counter()
-            pending = svc.step_async()
-            t1 = time.perf_counter()
-            batches.append(pending.result())
-            t2 = time.perf_counter()
+            with (timer if timer is not None and t > 0
+                  else contextlib.nullcontext()):
+                t0 = time.perf_counter()
+                pending = svc.step_async()
+                t1 = time.perf_counter()
+                batches.append(pending.result())
+                t2 = time.perf_counter()
             for m, n in want.items():
                 check(m.LAUNCHES - before[m] == n, f"serving tick {t}: "
                       f"{m.LAUNCHES - before[m]} {m.__name__} launches, "
@@ -1544,6 +1599,7 @@ def serving_phase(phase, card, mux_build, runner_ms, live_runner_ms, model):
     from motcpp_tpu_torch.ops import auction_cuda
     from motcpp_tpu_torch.parallel.streams import MultiStreamRunner
     from motcpp_tpu_torch.serving import StreamMux, TrackingService
+    from motcpp_tpu_torch.utils.profiling import FrameTimer
 
     path, build_s = mux_build
     print(f"phase {phase} build: {path.name} (g++) in {build_s:.2f} s")
@@ -1569,15 +1625,19 @@ def serving_phase(phase, card, mux_build, runner_ms, live_runner_ms, model):
         for s, h in enumerate(hs):
             svc.submit(h, dets[t, s, :counts[t, s]])
 
+    timers = {"ByteTrack": FrameTimer(n_streams=S),
+              "BoT-SORT live": FrameTimer(n_streams=LIVE_S)}
+    medians = {}
     auction_cuda.LAUNCHES = 0
-    batches, rows = serve_ticks(svc, submit, T + 1, {auction_cuda: 2})
+    batches, rows = serve_ticks(svc, submit, T + 1, {auction_cuda: 2},
+                                timers["ByteTrack"])
     auction_launches = auction_cuda.LAUNCHES
     stats = svc.stats()
     profiled = profile_tick(svc, lambda: submit(T + 1))
     want = MultiStreamRunner(init, step, S, device="cuda").run(
         dets[:T + 1], masks[:T + 1])
     emitted, err = check_served("ByteTrack serving", batches, *want)
-    tick_s = float(np.median(rows[1:, 0]))
+    tick_s = medians["ByteTrack"] = float(np.median(rows[1:, 0]))
     print(f"phase {phase} serving ByteTrack S={S} K={K} N={N}, {T} ticks "
           f"after one warm-up: {tick_report(rows[1:])}; {S / tick_s / 30:.0f}"
           f" streams at 30 FPS; the runner on the same path (phase 3) "
@@ -1620,7 +1680,8 @@ def serving_phase(phase, card, mux_build, runner_ms, live_runner_ms, model):
 
     osblock_cuda.LAUNCHES = auction_cuda.LAUNCHES = 0
     batches, rows = serve_ticks(svc, submit_live, ticks,
-                                {osblock_cuda: 6, auction_cuda: 2})
+                                {osblock_cuda: 6, auction_cuda: 2},
+                                timers["BoT-SORT live"])
     live_launches = (osblock_cuda.LAUNCHES, auction_cuda.LAUNCHES)
     stats = svc.stats()
     profiled = profile_tick(svc, lambda: submit_live(ticks))
@@ -1636,7 +1697,7 @@ def serving_phase(phase, card, mux_build, runner_ms, live_runner_ms, model):
                                 embs=crops_t[None]))
     want = [torch.cat([p[i] for p in parts]) for i in range(2)]
     emitted, err = check_served("BoT-SORT live serving", batches, *want)
-    tick_s = float(np.median(rows[1:, 0]))
+    tick_s = medians["BoT-SORT live"] = float(np.median(rows[1:, 0]))
     print(f"phase {phase} serving BoT-SORT live ReID cadence {CADENCE} "
           f"S={LIVE_S} N={LIVE_N} K={LIVE_K} D={LIVE_D} osnet_x1_0 bf16 "
           f"{CROP_HW[0]}x{CROP_HW[1]} crops through the mux, "
@@ -1698,7 +1759,371 @@ def serving_phase(phase, card, mux_build, runner_ms, live_runner_ms, model):
           f"emissions); two step_async ticks in flight = two step()s on "
           f"all {len(gappy)} ticks")
     return {"auction_launches": auction_launches + live_launches[1],
-            "osblock_launches": live_launches[0]}
+            "osblock_launches": live_launches[0],
+            "timers": {name: (t.report(), medians[name])
+                       for name, t in timers.items()}}
+
+
+def tune_trial(name, params, device, work):
+    """scripts/tune.py's evaluate_params on the port: the tracker built
+    from ``params`` (with the auction kernel's route, the plain auction
+    on the CPU) over MOT17-mini's first TUNE_FRAMES frames of each
+    sequence, rows written to ``work``, scored by the port's metrics.
+    Returns the combined metrics and the rows' bytes per sequence."""
+    from motcpp_tpu_torch import create_tracker
+    from motcpp_tpu_torch.data import (
+        MOT17Dataset,
+        convert_to_mot_format,
+        write_mot_results,
+    )
+    from motcpp_tpu_torch.metrics import combine_metrics, evaluate_sequence
+
+    ds = MOT17Dataset(MOT_MINI)
+    rows, texts = [], {}
+    dummy = np.zeros((1080, 1920, 3), np.uint8)
+    for seq in ds.sequences:
+        detections = ds.load_detections(seq.det_path)
+        tracker = create_tracker(name, max_dets=128, max_tracks=128,
+                                 device=device, lap_impl="auction_pallas",
+                                 **params)
+        out_file = work / f"{seq.name}.txt"
+        for frame_id in sorted(detections)[:TUNE_FRAMES]:
+            tracks = tracker.update(detections[frame_id], dummy)
+            if tracks.shape[0]:
+                write_mot_results(out_file,
+                                  convert_to_mot_format(tracks, frame_id))
+        gt = MOT_MINI / seq.name / "gt" / "gt.txt"
+        if gt.exists() and out_file.exists():
+            texts[seq.name] = out_file.read_bytes()
+            rows.append(evaluate_sequence(gt, out_file))
+    check(rows, f"the tune loop emitted nothing on {device}")
+    return combine_metrics(rows), texts
+
+
+def run_service(svc, submit, ticks):
+    """One step() per tick of ``ticks`` after ``submit(t)``."""
+    out = []
+    for t in ticks:
+        submit(svc, t)
+        out.append(svc.step())
+    return out
+
+
+def same_emissions(got, want):
+    """Identical masks, and the emitted rows (ids and boxes) to the bit."""
+    return len(got) == len(want) and all(
+        np.array_equal(g.out_masks, w.out_masks)
+        and g.outs[g.out_masks].tobytes() == w.outs[w.out_masks].tobytes()
+        for g, w in zip(got, want))
+
+
+def failover(label, make, submit, ticks, cut, work, card):
+    """The uninterrupted run of ``ticks`` ticks against, for each file
+    format, a run cut after ``cut`` ticks: the state saved (timed, with
+    the copy off the card), read into a fresh service's _init_states()
+    (timed, with the copy to the card) and the other ticks continued
+    there. Returns the restored services (for one more tick) and the
+    emissions' count."""
+    from motcpp_tpu_torch.utils.checkpoint import load_state, save_state
+
+    want = run_service(make(), submit, range(ticks))
+    check(sum(int(b.out_masks.sum()) for b in want) > 0,
+          f"{label}: no emissions")
+    first = make()
+    run_service(first, submit, range(cut))
+    restored, report = {}, []
+    for fmt in ("npz", "pt"):
+        path = work / f"{label.replace(' ', '_')}.{fmt}"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_state(first.states, path)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        svc = make()
+        template = svc._init_states()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = load_state(template, path)
+        torch.cuda.synchronize()
+        load_ms = (time.perf_counter() - t0) * 1e3
+        svc.restore(state)  # supersedes the reset of make()'s attach
+        got = run_service(svc, submit, range(cut, ticks))
+        check(same_emissions(got, want[cut:]),
+              f"{label}: the {fmt} failover differs from the uninterrupted "
+              "run")
+        restored[fmt] = svc
+        report.append(f"{fmt} {path.stat().st_size / 1e6:.3f} MB, save "
+                      f"{save_ms:.3f} ms, load {load_ms:.3f} ms")
+    emitted = sum(int(b.out_masks.sum()) for b in want[cut:])
+    print(f"phase 18 (c) {label}: {ticks} ticks uninterrupted = {cut} ticks,"
+          f" checkpoint, a fresh service restored, {ticks - cut} ticks, in "
+          f"both formats, bit for bit ({emitted} emissions after the cut); "
+          f"{'; '.join(report)}; card: {card}")
+    return restored
+
+
+def traced_kernels(tick):
+    """Names in the Chrome trace that utils/profiling.py::trace exports
+    (as its context closes) around ``tick()``."""
+    from motcpp_tpu_torch.utils.profiling import trace
+
+    with tempfile.TemporaryDirectory() as d:
+        with trace(d, device="cuda"):
+            tick()
+            torch.cuda.synchronize()
+        (path,) = Path(d).glob("*.pt.trace.json")
+        events = json.loads(path.read_text())["traceEvents"]
+    return {e.get("name", "") for e in events}
+
+
+def utilities_phase(phase, card, io_build, model, timers):
+    """Phase ``phase``: what the utilities slice gives a deployment, on
+    the card. (a) the nine configs through the port's reader (PyYAML or
+    not) and scripts/tune.py's loop for ByteTrack over MOT17-mini through
+    the auction kernel, the YAML defaults and 3 seeded draws, equal to
+    the same loop on the CPU; (b) the tests/golden_long sets of
+    CLI_TRACKERS from the port's CLI, byte for byte through the native
+    writer, scored as tests/accuracy_mot17mini.json; (c) checkpoint failover
+    through TrackingService in both formats at the ByteTrack flagship
+    and at live BoT-SORT cadence 8; (d) one flagship and one live tick
+    under utils/profiling.py::trace, and FrameTimer's p50 of phase 17's
+    ticks; (e) ReIDBackend.warmup(): the unfolded forward, no kernel
+    launch; (f) the native parser on both det.txt files. Returns the
+    kernels' launches on (a), (c) and (d)."""
+    from motcpp_tpu_torch.appearance import osblock_cuda
+    from motcpp_tpu_torch.appearance.reid import ReIDBackend, make_embed_fn
+    from motcpp_tpu_torch.config import load_tracker_config
+    from motcpp_tpu_torch.data import pack_valid_rows, synth_stream_dets
+    from motcpp_tpu_torch.data.mot17 import _parse_det_text
+    from motcpp_tpu_torch.metrics import combine_metrics, evaluate_sequence
+    from motcpp_tpu_torch.ops import auction_cuda
+    from motcpp_tpu_torch.serving import TrackingService
+    from motcpp_tpu_torch.utils import native_io
+
+    path, build_s = io_build
+    print(f"phase {phase} build: {path.name} (g++) in {build_s:.2f} s")
+    # ---- (f) the native parser --------------------------------------------
+    check(native_io.available(), "the native IO library did not load")
+    for det in sorted(MOT_MINI.glob("*/det/det.txt")):
+        got, want = native_io.parse_detections(det), _parse_det_text(det)
+        check([f for f, _ in got] == [f for f, _ in want] and np.asarray(
+            [r for _, r in got], np.float32).tobytes() == np.asarray(
+            [r for _, r in want], np.float32).tobytes(),
+            f"native and Python parsers differ on {det}")
+        print(f"phase {phase} (f) native parser = Python parser on "
+              f"{det.relative_to(MOT_MINI)}: {len(got)} rows identical")
+
+    osblock_cuda.LAUNCHES = auction_cuda.LAUNCHES = 0
+    # ---- (a) configs without PyYAML, tune.py's loop ------------------------
+    has_yaml = subprocess.run([sys.executable, "-c", "import yaml"],
+                              capture_output=True).returncode == 0
+    configs = {n: load_tracker_config(n) for n in TRACKER_NAMES}
+    check("yaml" not in sys.modules, "the config reader imported yaml")
+    cfg = configs["bytetrack"]
+    check(cfg.search_space, "bytetrack.yaml has no search nodes")
+    rng = np.random.default_rng(0)
+    trials = [cfg.as_kwargs()] + [cfg.sample(rng) for _ in range(3)]
+    scores = []
+    with tempfile.TemporaryDirectory() as d:
+        for i, params in enumerate(trials):
+            runs = {}
+            for dev in ("cuda", "cpu"):
+                work = Path(d) / f"trial{i}_{len(runs)}"
+                work.mkdir()
+                runs[dev] = tune_trial("bytetrack", params, dev, work)
+            (m, texts), (m_cpu, texts_cpu) = runs["cuda"], runs["cpu"]
+            check(texts == texts_cpu, f"tune trial {i}: the card's rows "
+                  "differ from the CPU's")
+            check(all(m[k] == m_cpu[k] for k in ("HOTA", "MOTA", "IDF1")),
+                  f"tune trial {i}: the card's scores differ from the CPU's")
+            scores.append(f"{'defaults' if i == 0 else f'trial {i}'} "
+                          f"{params}: HOTA {m['HOTA']:.3f} MOTA "
+                          f"{m['MOTA']:.3f} IDF1 {m['IDF1']:.3f}")
+    tune_launches = auction_cuda.LAUNCHES
+    check(tune_launches > 0, "the tune loop did not launch the auction kernel")
+    print(f"phase {phase} (a) yaml importable here: {has_yaml}; nine configs "
+          f"read without it ({', '.join(f'{n} {len(c.params)}' for n, c in configs.items())} "
+          f"parameters); tune.py's loop for ByteTrack over MOT17-mini's "
+          f"first {TUNE_FRAMES} frames, card = CPU (rows byte for byte, "
+          f"HOTA, MOTA, IDF1): {' | '.join(scores)}; auction launches "
+          f"{tune_launches}")
+
+    # ---- (b) the nine golden_long sets from the CLI on the card ------------
+    from motcpp_tpu_torch.cli import main as cli_main
+
+    written = []
+    write_mot = native_io.write_mot
+
+    def counted_write(*args):
+        ok = write_mot(*args)
+        written.append(ok)
+        return ok
+
+    expected = json.loads((TESTS / "accuracy_mot17mini.json").read_text())
+    native_io.write_mot = counted_write
+    t0 = time.perf_counter()
+    walls = {}
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            for name in CLI_TRACKERS:
+                t1 = time.perf_counter()
+                out = Path(d) / name
+                with contextlib.redirect_stdout(io.StringIO()):
+                    rc = cli_main([str(MOT_MINI), str(out), name,
+                                   "--max-dets", "128", "--max-tracks", "128",
+                                   "--no-ablation", "--limit-frames", "150"])
+                walls[name] = time.perf_counter() - t1
+                check(rc == 0, f"the CLI failed for {name}")
+                golden = sorted((TESTS / "golden_long" / name).glob("*.txt"))
+                check(len(golden) == 2, f"golden_long/{name} is incomplete")
+                rows = []
+                for gf in golden:
+                    check((out / gf.name).read_bytes() == gf.read_bytes(),
+                          f"the CLI's {name} {gf.name} differs from "
+                          "tests/golden_long")
+                    rows.append(evaluate_sequence(
+                        MOT_MINI / gf.stem / "gt" / "gt.txt", out / gf.name))
+                got, want = combine_metrics(rows), expected[name]
+                check(all(abs(got[k] - want[k]) <= 0.05 for k in
+                          ("HOTA", "MOTA", "IDF1", "DetA", "AssA", "MOTP"))
+                      and all(got[k] == want[k] for k in
+                              ("IDSW", "FP", "FN", "MT", "ML")),
+                      f"{name}'s scores differ from accuracy_mot17mini.json")
+    finally:
+        native_io.write_mot = write_mot
+    b_s = time.perf_counter() - t0
+    check(written and all(written), "rows were not written by native_io")
+    print(f"phase {phase} (b) the golden_long sets of {', '.join(CLI_TRACKERS)}"
+          f" from the CLI on the card (exact JV, 150 frames of each "
+          f"sequence): byte for byte, "
+          f"{len(written)} native writes, scores = accuracy_mot17mini.json; "
+          f"wall {b_s:.1f} s ("
+          + ", ".join(f"{n} {s:.1f}" for n, s in walls.items())
+          + f" s); card: {card}")
+
+    # ---- (c) checkpoint failover through TrackingService -------------------
+    osblock_cuda.LAUNCHES = auction_cuda.LAUNCHES = 0
+    ticks, cut = FAILOVER_TICKS, FAILOVER_TICKS // 2
+    dets, masks, _ = pack_valid_rows(*synth_stream_dets(
+        np.random.default_rng(0), ticks + 1, S, N, n_obj=N_OBJ))
+    counts = masks.sum(-1)
+
+    def make_flagship():
+        svc = TrackingService.from_tracker(
+            "bytetrack", S, max_dets=N, device="cuda",
+            tracker_kw=dict(max_tracks=K, lap_impl="auction_pallas"))
+        svc.handles = [svc.attach() for _ in range(S)]
+        return svc
+
+    def submit(svc, t):
+        for s, h in enumerate(svc.handles):
+            svc.submit(h, dets[t, s, :counts[t, s]])
+
+    with tempfile.TemporaryDirectory() as d:
+        flag = failover("ByteTrack flagship", make_flagship, submit, ticks,
+                        cut, Path(d), card)
+    flag_launches = auction_cuda.LAUNCHES
+    check(flag_launches == 2 * (ticks + cut + 2 * (ticks - cut)),
+          f"flagship failover: {flag_launches} auction launches")
+
+    live_ticks = 2 * CADENCE
+    ldets, lmasks, order = pack_valid_rows(*synth_stream_dets(
+        np.random.default_rng(0), live_ticks + 1, LIVE_S, LIVE_N,
+        n_obj=LIVE_OBJ))
+    lcounts = lmasks.sum(-1)
+    crops_host = torch.randint(0, 256, (LIVE_S, LIVE_N, *CROP_HW, 3),
+                               dtype=torch.uint8, device="cuda",
+                               generator=torch.Generator(device="cuda")
+                               .manual_seed(0)).cpu().numpy()
+    embed = make_embed_fn(model, compute_dtype="bfloat16", fused=True,
+                          device="cuda")
+
+    def make_live():
+        svc = TrackingService.from_tracker(
+            "botsort", LIVE_S, max_dets=LIVE_N, emb_dim=LIVE_D,
+            device="cuda", crop_hw=CROP_HW, embed_fn=embed,
+            emb_cadence=CADENCE, tracker_kw=dict(
+                with_reid=True, max_tracks=LIVE_K,
+                lap_impl="auction_pallas"))
+        svc.handles = [svc.attach() for _ in range(LIVE_S)]
+        return svc
+
+    def submit_live(svc, t):
+        for s, h in enumerate(svc.handles):
+            n = lcounts[t, s]
+            svc.submit(h, ldets[t, s, :n], crops=crops_host[
+                (s - t) % LIVE_S][order[t, s, :n]])
+
+    osblock_cuda.LAUNCHES = 0
+    with tempfile.TemporaryDirectory() as d:
+        live = failover(f"BoT-SORT live cadence {CADENCE}", make_live,
+                        submit_live, live_ticks, CADENCE, Path(d), card)
+    live_ticks_run = live_ticks + CADENCE + 2 * (live_ticks - CADENCE)
+    check(osblock_cuda.LAUNCHES == 6 * live_ticks_run
+          and auction_cuda.LAUNCHES - flag_launches == 2 * live_ticks_run,
+          f"live failover: {osblock_cuda.LAUNCHES} OSBlock and "
+          f"{auction_cuda.LAUNCHES - flag_launches} auction launches")
+    auction_launches = tune_launches + auction_cuda.LAUNCHES
+    osblock_launches = osblock_cuda.LAUNCHES
+
+    # ---- (d) profiling -------------------------------------------------------
+    osblock_cuda.LAUNCHES = auction_cuda.LAUNCHES = 0
+    svc = flag["npz"]
+    names = traced_kernels(lambda: (submit(svc, ticks), svc.step()))
+    check(any("auction_kernel" in n for n in names),
+          "the flagship tick's trace names no auction kernel")
+    svc = live["pt"]
+    live_names = traced_kernels(lambda: (submit_live(svc, live_ticks),
+                                         svc.step()))
+    check(any("auction_kernel" in n for n in live_names)
+          and any("osblock_kernel" in n for n in live_names),
+          "the live tick's trace names no auction or no OSBlock kernel")
+    auction_launches += auction_cuda.LAUNCHES
+    osblock_launches += osblock_cuda.LAUNCHES
+    timed = "; ".join(
+        f"{name} FrameTimer p50 {rep['p50_ms']:.3f} ms (mean "
+        f"{rep['mean_ms']:.3f}, p95 {rep['p95_ms']:.3f}, {rep['frames']} "
+        f"ticks, {rep['streams_at_30fps']:.1f} streams at 30 FPS) beside "
+        f"phase 17's median {median * 1e3:.3f} ms"
+        for name, (rep, median) in timers.items())
+    def ours(found):
+        return sorted(n for n in found
+                      if "auction_kernel" in n or "osblock_kernel" in n)
+
+    print(f"phase {phase} (d) trace(): the flagship tick's trace names "
+          f"{ours(names)}, the live tick's {ours(live_names)}; {timed}")
+    del flag, live, svc, crops_host
+
+    # ---- (e) the ReID warm-up ------------------------------------------------
+    # ReIDBackend runs the unfolded OSNet, as the JAX backend runs its Flax
+    # module: its warm-up launches neither kernel. Its batch is embedded on
+    # the card (TF32 off) as on the CPU.
+    osblock_cuda.LAUNCHES = auction_cuda.LAUNCHES = 0
+    feats = {}
+    backends = {"cuda": ReIDBackend(device="cuda"),
+                "cpu": ReIDBackend(device="cpu")}
+    for key, b in backends.items():
+        inner = b.get_features
+        b.get_features = lambda x, i, inner=inner, key=key: feats.setdefault(
+            key, inner(x, i))
+    t0 = time.perf_counter()
+    with exact_float32():
+        backends["cuda"].warmup()
+        torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    check(osblock_cuda.LAUNCHES == 0 and auction_cuda.LAUNCHES == 0,
+          f"warmup() launched the OSBlock kernel {osblock_cuda.LAUNCHES} and "
+          f"the auction kernel {auction_cuda.LAUNCHES} times, not 0")
+    backends["cpu"].warmup()
+    warm_err = float(np.abs(feats["cuda"] - feats["cpu"]).max())
+    check(feats["cuda"].shape == (2, 512) and warm_err <= 1e-3,
+          f"warmup()'s embeddings: shape {feats['cuda'].shape}, "
+          f"max |card - cpu| {warm_err:.3g} > 1e-3")
+    print(f"phase {phase} (e) ReIDBackend(osnet_x1_0 f32, TF32 off)"
+          f".warmup(): the unfolded forward, 0 kernel launches, "
+          f"{warm_ms:.1f} ms (first "
+          f"call), embeddings max |card - cpu| {warm_err:.3g} <= 1e-3")
+    return {"auction_launches": auction_launches,
+            "osblock_launches": osblock_launches}
 
 
 def main(argv=None):

@@ -10,11 +10,22 @@ wrapper, the eval CLI, the host camera-motion estimators and the
 sparse-flow and ECC ones in torch, OSNet live ReID (every OSBlock
 through a CUDA kernel on the card; every frame, at a cadence or at a
 priority budget), the single-device multi-stream runner with live
-camera motion from frames, and the serving runtime on one device (the
-native stream mux and ``serving.TrackingService``).
+camera motion from frames, the serving runtime on one device (the
+native stream mux and ``serving.TrackingService``), tracker configs
+read without PyYAML, state checkpoint files, the MOT metrics (HOTA,
+CLEAR, IDF1) and the host utilities (native IO, profiling,
+visualization).
 """
 
-__all__ = ["create_tracker", "TRACKERS"]
+from motcpp_tpu_torch.version import __version__, version
+
+__all__ = [
+    "__version__",
+    "version",
+    "create_tracker",
+    "load_tracker_config",
+    "TRACKERS",
+]
 
 TRACKERS = (
     "sort",
@@ -27,6 +38,15 @@ TRACKERS = (
     "hybridsort",
     "ucmctrack",
 )
+
+
+def load_tracker_config(name: str):
+    """Load ``configs/trackers/<name>.yaml`` (or a path) into a typed
+    config (reference: src/config.cpp:76-80); see
+    :func:`motcpp_tpu_torch.config.load_tracker_config`."""
+    from motcpp_tpu_torch.config import load_tracker_config as _load
+
+    return _load(name)
 
 
 def create_tracker(name: str, **kwargs):

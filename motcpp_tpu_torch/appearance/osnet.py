@@ -277,6 +277,103 @@ def state_dict_from_flax(variables) -> dict:
     return _load_checked(model, out).state_dict()
 
 
+def _flax_path_for(torch_key: str):
+    """torch module path -> Flax module path: numeric components merge
+    into the previous name (``conv2.0.conv2b.1`` -> ``conv2_0/conv2b_1``)."""
+    parts = torch_key.split(".")
+    mods: list[str] = []
+    for c in parts[:-1]:
+        if c.isdigit() and mods:
+            mods[-1] = f"{mods[-1]}_{c}"
+        else:
+            mods.append(c)
+    return mods, parts[-1]
+
+
+def convert_torch_state_dict(state_dict) -> dict:
+    """A torchreid-layout OSNet state_dict (this module's, or a torchreid
+    checkpoint's) as the JAX package's Flax variables ``{"params": ...,
+    "batch_stats": ...}`` of numpy arrays: the inverse of
+    :func:`state_dict_from_flax` and the counterpart of
+    ``motcpp_tpu/appearance/osnet.py::convert_torch_state_dict``.
+
+    Deterministic name-based mapping (never by shape):
+
+      * conv ``weight`` (4-D) -> ``kernel`` OIHW->HWIO (depthwise O1HW
+        lands in Flax's (H, W, 1, C) layout via the same transpose)
+      * gate fc1/fc2 Conv2d ``weight`` (out,in,1,1) -> Dense ``kernel``
+      * Linear ``weight`` (2-D) -> ``kernel`` transposed
+      * BN ``weight``/``bias`` -> params ``scale``/``bias``;
+        ``running_mean``/``running_var`` -> batch_stats ``mean``/``var``
+      * ``classifier.*`` (training head) and ``num_batches_tracked`` skipped
+    """
+    params: dict = {}
+    batch_stats: dict = {}
+
+    def put(tree, mods, leaf_name, value):
+        node = tree
+        for m in mods:
+            node = node.setdefault(m, {})
+        node[leaf_name] = np.asarray(value)
+
+    keys = set(state_dict.keys())
+    for key, tensor in state_dict.items():
+        if key.startswith("classifier.") or key.endswith("num_batches_tracked"):
+            continue
+        arr = np.asarray(
+            tensor.detach().cpu().numpy() if hasattr(tensor, "detach") else tensor
+        )
+        mods, leaf = _flax_path_for(key)
+        module = key.rsplit(".", 1)[0]
+        is_bn = f"{module}.running_mean" in keys
+
+        if leaf == "running_mean":
+            put(batch_stats, mods, "mean", arr)
+        elif leaf == "running_var":
+            put(batch_stats, mods, "var", arr)
+        elif leaf == "weight":
+            if is_bn:
+                put(params, mods, "scale", arr)
+            elif arr.ndim == 4:
+                if mods and mods[-1] in ("fc1", "fc2"):
+                    # ChannelGate 1x1 Conv2d -> Dense
+                    put(params, mods, "kernel", arr[:, :, 0, 0].T)
+                else:
+                    put(params, mods, "kernel", np.transpose(arr, (2, 3, 1, 0)))
+            elif arr.ndim == 2:
+                put(params, mods, "kernel", arr.T)
+            else:
+                raise ValueError(f"unhandled weight shape {arr.shape} at {key}")
+        elif leaf == "bias":
+            put(params, mods, "bias", arr)
+        else:
+            raise ValueError(f"unhandled state_dict entry: {key}")
+
+    return {"params": params, "batch_stats": batch_stats}
+
+
+def _flat_paths(tree, prefix=()):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat_paths(v, prefix + (k,)))
+        else:
+            out[prefix + (k,)] = v
+    return out
+
+
+def save_npz_variables(path, variables) -> None:
+    """Save Flax-layout variables (``convert_torch_state_dict``'s output)
+    as a flat .npz ('params/conv1/conv/kernel' style keys), the output
+    format of scripts/convert_reid_weights.py, which
+    :func:`load_npz_variables` and the JAX package's loader read."""
+    flat = {}
+    for coll, tree in variables.items():
+        for p, v in _flat_paths(dict(tree)).items():
+            flat["/".join((coll,) + p)] = np.asarray(v)
+    np.savez(path, **flat)
+
+
 def load_npz_variables(path) -> dict:
     """A flat ``.npz`` of Flax variables ('params/conv1/conv/kernel'
     keys, the output of scripts/convert_reid_weights.py) as a nested

@@ -125,7 +125,10 @@ class ReIDBackend:
     osnet_x1_0 with random weights from ``seed``. model_name drives the
     input-shape and normalization heuristics (the weights' file name
     when empty). compute_dtype: "float32" or "bfloat16"; embeddings
-    return as L2-normalized float32 numpy either way.
+    return as L2-normalized float32 numpy either way. The network runs
+    as the unfolded module, as the JAX package's backend runs its Flax
+    module: the OSBlock kernel is on the live-ReID path
+    (``make_embed_fn(fused=True)``), not here.
     """
 
     def __init__(self, weights: str = "", model_name: str = "", seed: int = 0,
@@ -172,6 +175,16 @@ class ReIDBackend:
         cdt = next(self.model.parameters()).dtype
         feats = self.model(crops.to(cdt)).float()
         return normalize_features(feats).cpu().numpy()
+
+    def warmup(self):
+        """Run the forward once on a seeded batch of two crops of a
+        256x256 image (onnx_backend.cpp:225-240), so that the first
+        frame does not pay for the first call's set-up."""
+        rng = np.random.default_rng(0)
+        img = rng.integers(0, 255, (256, 256, 3), np.uint8)
+        self.get_features(
+            np.asarray([[0, 0, 128, 256], [64, 0, 192, 256]], np.float32), img
+        )
 
 
 def make_embed_fn(model, norm=(IMAGENET_MEAN, IMAGENET_STD),

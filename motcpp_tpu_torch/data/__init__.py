@@ -1,10 +1,13 @@
 """Data: MOT17 loading, MOT-Challenge output, synthetic multi-stream
-detections and the live camera-motion frames. Copies of the JAX package's modules, so that
+detections, the live camera-motion frames and the deterministic
+scenes. Copies of the JAX package's modules, so that
 the port imports nothing of it."""
 
 from motcpp_tpu_torch.data.mot17 import MOT17Dataset, SequenceInfo, read_gt_max_frame
 from motcpp_tpu_torch.data.mot_format import convert_to_mot_format, write_mot_results
 from motcpp_tpu_torch.data.synthetic import (
+    ablation_scene,
+    camera_pan_scene,
     pack_valid_rows,
     pan_frames,
     pan_texture,
@@ -14,6 +17,8 @@ from motcpp_tpu_torch.data.synthetic import (
 __all__ = [
     "MOT17Dataset",
     "SequenceInfo",
+    "ablation_scene",
+    "camera_pan_scene",
     "convert_to_mot_format",
     "pack_valid_rows",
     "pan_frames",

@@ -1,11 +1,13 @@
 """MOT17 dataset indexing and detection loading.
 
-A copy of the parts of ``motcpp_tpu/data/mot17.py`` that the port's CLI
-needs (the port imports nothing of the JAX package), with NumPy parsing
-only. Host-side equivalent of the reference loader (reference:
-src/data/mot17_dataset.cpp:12-345): indexes ``<root>/<seq>/{img1, det/
-det.txt, gt/gt.txt, seqinfo.ini}``, reads fps from seqinfo, loads
-detections in both supported formats (autodetected per file):
+A copy of ``motcpp_tpu/data/mot17.py`` (the port imports nothing of the
+JAX package); detections and embeddings are parsed by the native IO
+library (``utils/native_io.py``) where it builds, in Python otherwise,
+with identical arrays. Host-side equivalent of the reference loader
+(reference: src/data/mot17_dataset.cpp:12-345): indexes
+``<root>/<seq>/{img1, det/det.txt, gt/gt.txt, seqinfo.ini}``, reads fps
+from seqinfo, loads detections in both supported formats (autodetected
+per file):
 
   * comma MOT rows ``frame,-1,x,y,w,h,conf[,cls]`` -> tlwh converted
     to xyxy (mot17_dataset.cpp:176-209)
@@ -142,20 +144,37 @@ class MOT17Dataset:
                 return int(m.group(1))
         return 30
 
+    # ------------------------------------------------------------- query
+    def sequence_names(self):
+        return [s.name for s in self.sequences]
+
+    def get_sequence_info(self, name: str) -> SequenceInfo:
+        for s in self.sequences:
+            if s.name == name:
+                return s
+        raise KeyError(f"Sequence not found: {name}")
+
+    # ------------------------------------------------------------ loads
     @staticmethod
     def load_detections(det_path) -> dict[int, np.ndarray]:
-        """frame_id -> (n, 6) [x1,y1,x2,y2,conf,cls] float32."""
+        """frame_id -> (n, 6) [x1,y1,x2,y2,conf,cls] float32, parsed by
+        the native IO library (utils/native_io.py), else in Python."""
         det_path = Path(det_path)
         if not det_path.exists():
             return {}
+        try:
+            from motcpp_tpu_torch.utils.native_io import parse_detections
+
+            rows = parse_detections(str(det_path))
+        except Exception:
+            rows = _parse_det_text(det_path)
         out: dict[int, list] = {}
-        for frame_id, det in _parse_det_text(det_path):
+        for frame_id, det in rows:
             out.setdefault(frame_id, []).append(det)
         return {
             f: np.asarray(v, np.float32).reshape(len(v), 6)
             for f, v in out.items()
         }
-
 
     @staticmethod
     def load_embeddings(emb_path, detections: dict) -> dict[int, np.ndarray]:
@@ -168,13 +187,33 @@ class MOT17Dataset:
         for frame_id in sorted(detections):
             det_frame_map += [frame_id] * detections[frame_id].shape[0]
         try:
-            embs = np.loadtxt(emb_path, dtype=np.float32, ndmin=2)
-        except ValueError:
-            return {}
+            from motcpp_tpu_torch.utils import native_io
+
+            embs = native_io.parse_embeddings(emb_path)
+        except Exception:
+            try:
+                embs = np.loadtxt(emb_path, dtype=np.float32, ndmin=2)
+            except ValueError:
+                return {}
         out: dict[int, list] = {}
         for idx in range(min(len(det_frame_map), embs.shape[0])):
             out.setdefault(det_frame_map[idx], []).append(embs[idx])
         return {f: np.stack(v) for f, v in out.items()}
+
+    def get_frame(self, seq_info: SequenceInfo, frame_id: int,
+                  detections: dict, embeddings: dict):
+        """(image | None, dets (n, 6), embs (n, E)); the image is None
+        where the sequence has no such frame or no image reader is
+        installed."""
+        img = None
+        if frame_id in seq_info.frame_ids:
+            idx = seq_info.frame_ids.index(frame_id)
+            img = imread(seq_info.frame_paths[idx])
+        dets = detections.get(frame_id, np.zeros((0, 6), np.float32))
+        embs = embeddings.get(
+            frame_id, np.zeros((dets.shape[0], 0), np.float32)
+        )
+        return img, dets, embs
 
 
 def imread(path):

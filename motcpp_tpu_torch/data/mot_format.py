@@ -33,8 +33,16 @@ def convert_to_mot_format(tracks: np.ndarray, frame_id: int) -> np.ndarray:
 
 def write_mot_results(output_path, mot_results: np.ndarray) -> None:
     """Append rows in the reference's exact text format (ints for
-    frame/id/box/world fields, %.6f confidence)."""
+    frame/id/box/world fields, %.6f confidence): through the native IO
+    library where it builds, else in Python, byte for byte the same."""
     output_path = os.fspath(output_path)
+    try:
+        from motcpp_tpu_torch.utils import native_io
+
+        if native_io.write_mot(output_path, np.asarray(mot_results)):
+            return
+    except Exception:
+        pass
     parent = os.path.dirname(output_path)
     if parent:
         os.makedirs(parent, exist_ok=True)

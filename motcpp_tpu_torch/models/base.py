@@ -18,6 +18,7 @@ ignore ``embs`` and ``warp``.
 
 from __future__ import annotations
 
+import colorsys
 from typing import Any
 
 import numpy as np
@@ -39,6 +40,14 @@ def pad_rows(arr: np.ndarray, capacity: int, fill: float = 0.0) -> np.ndarray:
     out = np.full((capacity,) + arr.shape[1:], fill, arr.dtype)
     out[:n] = arr
     return out
+
+
+def id_to_color(track_id: int, saturation: float = 0.75, value: float = 0.95):
+    """Deterministic per-ID BGR color via hue hashing (reference:
+    src/tracker.cpp:127-158). Host-side visualization helper only."""
+    hue = (hash(int(track_id)) % 360) / 360.0
+    r, g, b = colorsys.hsv_to_rgb(hue, saturation, value)
+    return (int(b * 255), int(g * 255), int(r * 255))
 
 
 class BaseTrackerWrapper:

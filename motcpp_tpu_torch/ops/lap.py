@@ -19,6 +19,8 @@ ended keeps its state while the others go on.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from motcpp_tpu_torch.ops import auction, auction_cuda
@@ -153,3 +155,16 @@ def solve_lap_masked(cost: torch.Tensor, row_mask: torch.Tensor,
     col2row.scatter_(1, torch.where(row2col >= 0, row2col, C),
                      torch.arange(R, device=cost.device).expand(P, R))
     return row2col.to(torch.int32), col2row[:, :C].to(torch.int32)
+
+
+def solve_lap(cost: torch.Tensor, thresh):
+    """Unmasked convenience wrapper over :func:`solve_lap_masked` (exact
+    JV) for ``(..., R, C)`` costs (one (R, C) problem, as the JAX
+    package's ``solve_lap``, or a batch); returns ``(..., R)`` and
+    ``(..., C)``."""
+    *lead, R, C = cost.shape
+    P = math.prod(lead)
+    ones = torch.ones((P, R + C), dtype=torch.bool, device=cost.device)
+    r2c, c2r = solve_lap_masked(cost.reshape(P, R, C), ones[:, :R],
+                                ones[:, R:], thresh)
+    return r2c.reshape(*lead, R), c2r.reshape(*lead, C)

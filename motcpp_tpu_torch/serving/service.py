@@ -428,7 +428,7 @@ class TrackingService:
             reset = self._reset.copy()
             self._reset[:] = False
         if self._states is None:
-            self._states = self._init_fn(self.n_streams)
+            self._states = self._init_states()
         dets_d, mask_d = self._put(dets), self._put(mask)
         args = [dets_d, mask_d, self._put(present), self._put(reset)]
         if self._use_adv:
@@ -515,6 +515,12 @@ class TrackingService:
                                         device=self.device))
         return type(template)(*out)
 
+    def _init_states(self):
+        """A fresh carry state over every slot on the service's device:
+        the template that ``utils/checkpoint.py::load_state`` reads a
+        checkpoint into."""
+        return self._init_fn(self.n_streams)
+
     @property
     def states(self):
         """A copy of the carry state (a tracker state over n_streams
@@ -525,12 +531,17 @@ class TrackingService:
 
     def restore(self, states) -> None:
         """Install a carry state (failover / migration): a previous
-        ``svc.states`` of a service of this tracker and size, with
+        ``svc.states`` of a service of this tracker and size (or one read
+        back from a file by ``utils/checkpoint.py::load_state``), with
         tensors or numpy arrays as fields. The fields are copied, never
         aliased. Stream continuation after restore is bit-exact. The
-        reset flags of slots attached since are left as they are."""
-        self._states = self._conform(self._init_fn(self.n_streams), states,
-                                     "state")
+        restored state supersedes every pending attach-time reset, so a
+        stream attached before the restore continues it; a slot attached
+        after it starts fresh. (The JAX service leaves the flags set, and
+        its failover test clears them by hand.)"""
+        self._states = self._conform(self._init_states(), states, "state")
+        with self._lock:
+            self._reset[:] = False
 
     def export_stream(self, handle: StreamHandle):
         """Snapshot ONE stream's tracker state: the tracker's state type
@@ -542,7 +553,7 @@ class TrackingService:
         """
         self._check(handle)
         if self._states is None:
-            self._states = self._init_fn(self.n_streams)
+            self._states = self._init_states()
         slot = handle.slot
         return type(self._states)(*(t[slot].to("cpu", copy=True).numpy()
                                     for t in self._states))
@@ -561,7 +572,7 @@ class TrackingService:
         snap = self._conform(type(one)(*(t[0] for t in one)), snapshot,
                              "stream snapshot")
         if self._states is None:
-            self._states = self._init_fn(self.n_streams)
+            self._states = self._init_states()
         idx = torch.tensor([handle.slot], device=self.device)
         self._states = type(self._states)(*(
             full.index_put((idx,), s.unsqueeze(0))

@@ -586,3 +586,150 @@ def test_live_service_on_the_card_equals_the_runner(cuda):
     np.testing.assert_array_equal(out_masks, want_m.cpu().numpy())
     np.testing.assert_array_equal(outs[out_masks],
                                   want_o.cpu().numpy()[out_masks])
+
+
+def serve_range(svc, hs, dets, masks, ticks):
+    """Submit every stream's frame of each tick in ``ticks`` and step;
+    returns the stacked outs and out_masks."""
+    got = []
+    for t in ticks:
+        for s, h in enumerate(hs):
+            svc.submit(h, dets[t, s, :int(masks[t, s].sum())])
+        got.append(svc.step())
+    return (np.stack([b.outs for b in got]),
+            np.stack([b.out_masks for b in got]))
+
+
+@pytest.mark.parametrize("fmt", ["npz", "pt"])
+def test_service_checkpoint_failover_on_the_card(cuda, tmp_path, fmt):
+    """The ByteTrack service on the card through the auction kernel: its
+    state saved after 5 ticks and restored into a fresh service from
+    _init_states() continues the uninterrupted run bit for bit."""
+    from motcpp_tpu_torch.serving import TrackingService
+    from motcpp_tpu_torch.utils.checkpoint import load_state, save_state
+
+    S, N, T = 16, 32, 10
+    dets, masks, _ = pack_valid_rows(*synth_stream_dets(
+        np.random.default_rng(0), T, S, N))
+    init, step = make_bytetrack(ByteTrackConfig(
+        max_tracks=64, max_dets=N, lap_impl="auction_pallas"), device=cuda)
+
+    def service():
+        svc = TrackingService(init, step, S, max_dets=N, device=cuda)
+        return svc, [svc.attach() for _ in range(S)]
+
+    ref, hs = service()
+    want = serve_range(ref, hs, dets, masks, range(T))
+    a, ha = service()
+    serve_range(a, ha, dets, masks, range(5))
+    save_state(a.states, tmp_path / f"svc.{fmt}")
+    b, hb = service()
+    b.restore(load_state(b._init_states(), tmp_path / f"svc.{fmt}"))
+    b._reset[:] = False
+    assert all(t.device.type == "cuda" for t in b.states)
+    before = auction_cuda.LAUNCHES
+    got = serve_range(b, hb, dets, masks, range(5, T))
+    assert auction_cuda.LAUNCHES - before == 2 * (T - 5)
+    assert int(got[1].sum()) > 0
+    np.testing.assert_array_equal(got[1], want[1][5:])
+    np.testing.assert_array_equal(got[0][got[1]], want[0][5:][got[1]])
+
+
+def test_card_checkpoint_continues_on_the_cpu(cuda, tmp_path):
+    """A torch checkpoint file of the service on the card loads on the
+    CPU and continues there (the plain auction) as a CPU service that
+    ran the whole stream does: masks and ids equal, boxes within 1e-4."""
+    from motcpp_tpu_torch.serving import TrackingService
+    from motcpp_tpu_torch.utils.checkpoint import load_state, save_state
+
+    S, N, T = 16, 32, 10
+    dets, masks, _ = pack_valid_rows(*synth_stream_dets(
+        np.random.default_rng(1), T, S, N))
+
+    def service(dev):
+        init, step = make_bytetrack(ByteTrackConfig(
+            max_tracks=64, max_dets=N, lap_impl="auction_pallas"), device=dev)
+        svc = TrackingService(init, step, S, max_dets=N, device=dev)
+        return svc, [svc.attach() for _ in range(S)]
+
+    card, hc = service(cuda)
+    serve_range(card, hc, dets, masks, range(5))
+    save_state(card.states, tmp_path / "card.pt")
+    cpu, hp = service("cpu")
+    cpu.restore(load_state(cpu._init_states(), tmp_path / "card.pt"))
+    cpu._reset[:] = False
+    assert all(t.device.type == "cpu" for t in cpu.states)
+    got = serve_range(cpu, hp, dets, masks, range(5, T))
+    plain, hq = service("cpu")
+    want = serve_range(plain, hq, dets, masks, range(T))
+    assert int(got[1].sum()) > 0
+    np.testing.assert_array_equal(got[1], want[1][5:])
+    g, w = got[0][got[1]], want[0][5:][got[1]]
+    np.testing.assert_array_equal(g[:, 4], w[:, 4])
+    np.testing.assert_allclose(g, w, rtol=0, atol=1e-4)
+
+
+def test_reid_warmup_on_the_card_runs_the_unfolded_forward(cuda):
+    """ReIDBackend.warmup() on the card runs the unfolded OSNet, as the
+    JAX backend runs its Flax module: it launches neither kernel, and its
+    embeddings equal the CPU backend's on the same batch within 1e-3."""
+    from motcpp_tpu_torch.appearance import osblock_cuda
+    from motcpp_tpu_torch.appearance.reid import ReIDBackend
+
+    feats = {}
+    backends = {"card": ReIDBackend(device=cuda),
+                "cpu": ReIDBackend(device="cpu")}
+    for key, b in backends.items():
+        inner = b.get_features
+        b.get_features = lambda x, i, inner=inner, key=key: feats.setdefault(
+            key, inner(x, i))
+    before = (osblock_cuda.LAUNCHES, auction_cuda.LAUNCHES)
+    backends["card"].warmup()
+    torch.cuda.synchronize()
+    assert (osblock_cuda.LAUNCHES, auction_cuda.LAUNCHES) == before
+    backends["cpu"].warmup()
+    assert feats["card"].shape == (2, 512)
+    np.testing.assert_allclose(feats["card"], feats["cpu"], rtol=0, atol=1e-3)
+
+
+def test_trace_on_the_card_names_the_auction_kernel(cuda, tmp_path):
+    """utils/profiling.py::trace records the card's kernels: a ByteTrack
+    rollout through the auction kernel exports a trace naming it."""
+    import json
+    from pathlib import Path
+
+    from motcpp_tpu_torch.utils.profiling import trace
+
+    dets, masks = synth_stream_dets(np.random.default_rng(0), 3, 8, 32)
+    init, step = make_bytetrack(ByteTrackConfig(
+        max_tracks=64, max_dets=32, lap_impl="auction_pallas"), device=cuda)
+    runner = MultiStreamRunner(init, step, 8, device=cuda)
+    with trace(tmp_path / "t", device=cuda) as logdir:
+        runner.run(dets, masks)
+        torch.cuda.synchronize()
+    (path,) = Path(logdir).glob("*.pt.trace.json")
+    names = {e.get("name", "") for e in json.loads(path.read_text())
+             ["traceEvents"]}
+    assert any("auction_kernel" in n for n in names)
+
+
+@pytest.mark.parametrize("name", ["deepocsort", "boosttrack", "hybridsort"])
+def test_appearance_tracker_eval_cli_on_the_card_writes_golden_long(
+        cuda, name, tmp_path):
+    """The port's eval CLI on the card writes tests/golden_long/<tracker>
+    (--no-ablation --limit-frames 150) byte for byte, as on the CPU;
+    chip_smoke.py phase 18 writes the other trackers' sets but
+    UCMCTrack's (test_ucmctrack_eval_cli_on_the_card_writes_the_goldens)."""
+    from pathlib import Path
+
+    from motcpp_tpu_torch.cli import main
+
+    root = Path(__file__).resolve().parent
+    mot = root.parent / "assets" / "MOT17-mini" / "train"
+    assert main([str(mot), str(tmp_path), name, "--max-dets", "128",
+                 "--max-tracks", "128", "--no-ablation", "--limit-frames",
+                 "150"]) == 0
+    golden = sorted((root / "golden_long" / name).glob("*.txt"))
+    assert len(golden) == 2
+    for gf in golden:
+        assert (tmp_path / gf.name).read_text() == gf.read_text(), gf.name

@@ -193,3 +193,29 @@ def test_serving_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
     batch = svc.step()
     assert batch.tracks_for(h).shape == (1, 8)
     assert all(t.device.type == "cpu" for t in svc.states)
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_yaml_import(path):
+    """The card's machine has no PyYAML: the port reads its configs with
+    its own reader (motcpp_tpu_torch/config.py)."""
+    assert "yaml" not in imported_roots(path)
+
+
+def test_utility_entry_points_default_to_cuda_and_raise_without_it(
+        no_cuda, tmp_path):
+    from motcpp_tpu_torch.ops.matching import linear_assignment
+    from motcpp_tpu_torch.utils.profiling import trace
+
+    cost = np.array([[0.1, 0.9], [0.9, 0.1]], np.float32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        linear_assignment(cost, 0.5)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        with trace(tmp_path / "t"):
+            pass
+    assert not (tmp_path / "t").exists()
+    assert linear_assignment(cost, 0.5, device="cpu")[0] == [(0, 0), (1, 1)]
+    with trace(tmp_path / "t", device="cpu"):
+        torch.ones(2).sum()
+    assert list((tmp_path / "t").glob("*.json"))

@@ -6,10 +6,12 @@ HybridSORT and UCMCTrack multi-stream paths at the bench's shapes, the
 live-ReID BoT-SORT, StrongSORT, DeepOC-SORT, BoostTrack and HybridSORT
 paths at the bench's live-ReID shape, StrongSORT with live camera
 motion from frames, the serving runtime (TrackingService over the
-native stream mux) at the ByteTrack flagship and at live ReID, and the
+native stream mux) at the ByteTrack flagship and at live ReID, the
 utilities (configs read without PyYAML, the eval CLI's goldens and the
 MOT metrics, checkpoint failover, profiling, the ReID warm-up, the native
-IO), and checks what they emit.
+IO), and the streams sharded over devices (the runner, the service, the
+emission collectives and a two-process dryrun), and checks what they
+emit.
 
     python3 chip_smoke.py [--baseline OTHER_AUCTION_CU]
 
@@ -143,13 +145,33 @@ so those compare float32 arithmetic. Phases:
      (e) ReIDBackend.warmup() on the card runs the unfolded forward (no
      kernel launch, as the JAX backend's Flax module) and embeds its
      batch as the CPU does within 1e-3; (f) the native parser equals the
-     Python parser on both MOT17-mini det.txt files.
+     Python parser on both MOT17-mini det.txt files;
+ 19. streams sharded over devices, two shards on the one card
+     (``devices=["cuda", "cuda"]``): (a) the ByteTrack flagship (phase
+     3's frames) through the sharded runner emits phase 3's masks, ids
+     and boxes bit for bit, 4 auction launches a frame, ms per
+     frame-batch beside phase 3's, and the kernel against its plain
+     version on each shard's own stage-1 and stage 2+3 inputs (2048
+     problems a stage-1 launch); (b) emission_stats and
+     per_stream_emissions over (a)'s masks as shards equal plain
+     reductions of phase 3's masks; (c) live BoT-SORT at cadence 8
+     (phase 7's shape and crops, 64 streams a shard) through the runner
+     (phase 7's emissions bit for bit) and through TrackingService with
+     compacted crops (phase 17's service's emissions bit for bit), 6
+     OSBlock and 2 auction launches a shard a frame; (d) live HybridSORT
+     at priority budget S*N equals one device, and at its deployed 0.8
+     (1638 crops) each shard embeds exactly 819 crops a frame, timed
+     beside phase 14; (e) the flagship service (20 ticks cut after 10)
+     fails over sharded -> .npz -> one device and one device -> torch
+     file -> sharded, each continuation equal to the uninterrupted run
+     bit for bit; (f) motcpp_tpu_torch.parallel.multihost's two-process
+     dryrun over gloo, each process's four shards on the card.
 
 Any failed check exits nonzero before the result is printed. The last
 line is ``{"ok": true, "device": {...}}``; the line before it is the
 card's name and power limit, and the one before that lists the kernels
 with their times and bounds (those of phases 3 and 7) and their
-launches summed over the main paths of phases 3, 7 and 9-18, each
+launches summed over the main paths of phases 3, 7 and 9-19, each
 counted from zero; before those, the script's wall time.
 """
 
@@ -486,7 +508,8 @@ def run_smoke(baseline=None):
         (3, 4), "ByteTrack", S, ("stage 1", "stages 2+3"),
         lambda lap: make_bytetrack(ByteTrackConfig(
             max_tracks=K, max_dets=N, lap_impl=lap), device="cuda"),
-        smi, previous=lambda name, args: baseline_ms(baseline, name, args))
+        smi, previous=lambda name, args: baseline_ms(baseline, name, args),
+        keep=True)
 
     # ---- 5-8. the live-ReID BoT-SORT path --------------------------------
     live = live_reid_phases(osblock_build, smi)
@@ -564,7 +587,6 @@ def run_smoke(baseline=None):
         paths[f"{name} live"] = live_tracker_phases(
             phase, name, live_make(make, cfg, min_hits=1, **live_kw), stages,
             model, scene, smi, [point])
-    del scene
 
     # ---- 15. UCMCTrack at bench.py's config (bench.py:128-133) -------------
     from motcpp_tpu_torch.models.ucmctrack import UCMCConfig, make_ucmctrack
@@ -585,6 +607,12 @@ def run_smoke(baseline=None):
     #      the ReID warm-up and the native IO --------------------------------
     utils = utilities_phase(18, smi, io_build, model, served["timers"])
 
+    # ---- 19. streams sharded over devices: the runner, the service, the
+    #      collectives and the two-process dryrun ---------------------------
+    sharded = sharded_phase(19, smi, byte, live, paths["HybridSORT live"],
+                            served["live"], scene)
+    del scene
+
     motion = [p for name, p in paths.items() if not name.endswith("live")]
     live_paths = [p for name, p in paths.items() if name.endswith("live")]
     kernels = [{
@@ -594,8 +622,10 @@ def run_smoke(baseline=None):
         "replaces": "motcpp_tpu/ops/auction_pallas.py:66",
         "launches": (sum(p["auction_launches"] for p in paths.values())
                      + served["auction_launches"]
-                     + utils["auction_launches"]),
-        "max_abs_err": max([max_err] + [p["auction_err"] for p in motion]
+                     + utils["auction_launches"]
+                     + sharded["auction_launches"]),
+        "max_abs_err": max([max_err, sharded["auction_err"]]
+                           + [p["auction_err"] for p in motion]
                            + [p["auction"]["auction_err"] for p in live_paths
                               if "auction" in p]),
         "ms": byte["ms"],
@@ -610,8 +640,10 @@ def run_smoke(baseline=None):
         "replaces": "motcpp_tpu/appearance/osblock_pallas.py:95",
         "launches": (sum(p["osblock_launches"] for p in live_paths)
                      + served["osblock_launches"]
-                     + utils["osblock_launches"]),
-        "max_abs_err": max(p["osblock"]["max_err"] for p in live_paths),
+                     + utils["osblock_launches"]
+                     + sharded["osblock_launches"]),
+        "max_abs_err": max([sharded["osblock_err"]]
+                           + [p["osblock"]["max_err"] for p in live_paths]),
         "ms": live["osblock"]["ms"],
         "plain_ms": live["osblock"]["plain_ms"],
         "bound_ms": live["osblock"]["bound_ms"],
@@ -627,11 +659,14 @@ def run_smoke(baseline=None):
           f"{served['osblock_launches']}")
     print(f"launches on phase 18's paths: auction "
           f"{utils['auction_launches']}, OSBlock {utils['osblock_launches']}")
+    print(f"launches on phase 19's sharded paths: auction "
+          f"{sharded['auction_launches']}, OSBlock "
+          f"{sharded['osblock_launches']}")
     return kernels, smi
 
 
 def tracker_path(phases, label, n_streams, stage_names, make, card,
-                 previous=None):
+                 previous=None, keep=False):
     """A tracker's multi-stream main path through the auction kernel and
     its checks: one warm-up and REPEATS timed run()s of T frames from a
     reset state, each launching the kernel len(stage_names) times a
@@ -642,7 +677,9 @@ def tracker_path(phases, label, n_streams, stage_names, make, card,
     returns the tracker's (init_fn, step_fn); ``card`` is nvidia-smi's
     name and power limit, printed with the times; ``previous(stage name,
     args)``, given for ByteTrack, returns the previous auction kernel's
-    ms on the stage's inputs and what was timed (see ``baseline_ms``)."""
+    ms on the stage's inputs and what was timed (see ``baseline_ms``).
+    With ``keep`` the result also holds the path's inputs and the last
+    timed run's outputs on the card (for phase 19)."""
     from motcpp_tpu_torch.data import synth_stream_dets
     from motcpp_tpu_torch.ops import auction_cuda
     from motcpp_tpu_torch.parallel.streams import MultiStreamRunner
@@ -713,7 +750,10 @@ def tracker_path(phases, label, n_streams, stage_names, make, card,
           f"{label}: kernel and plain paths emit different ids or boxes")
     print(f"phase {eq_phase} {label} kernel path = plain path on "
           f"{EQUAL_STREAMS} streams: identical ({int(km.sum())} emissions)")
-    return dict(stats, auction_launches=launches, frame_ms=run_s * 1e3 / T)
+    result = dict(stats, auction_launches=launches, frame_ms=run_s * 1e3 / T)
+    if keep:
+        result.update(inputs=(dets, masks), outputs=(outs, out_masks))
+    return result
 
 
 def auction_on_path(phase, label, stage_names, run_frame, card,
@@ -934,11 +974,11 @@ def check_live_outputs(label, e, outs, out_masks):
     return emitted
 
 
-def osblock_on_path(phase, runner, dets, masks, crops):
+def osblock_on_path(phase, runner, dets, masks, crops, shards=1):
     """The OSBlock kernel on the inputs a live path gives each block (its
-    third frame, after two from a fresh ``runner``), beside its plain
-    version (float32 products) and its bound; returns the per-frame
-    sums."""
+    third frame, after two from a fresh ``runner``; each of ``shards``
+    shards embeds its own crops), beside its plain version (float32
+    products) and its bound; returns the per-frame sums."""
     from motcpp_tpu_torch.appearance import osblock, osblock_cuda
 
     runner.run(dets[:2], masks[:2], embs=crops[:2])
@@ -954,7 +994,8 @@ def osblock_on_path(phase, runner, dets, masks, crops):
         runner.run(dets[2:3], masks[2:3], embs=crops[2:3])
     finally:
         osblock_cuda.osblock = launch
-    check(len(captured) == 6, f"captured {len(captured)} blocks, want 6")
+    check(len(captured) == 6 * shards,
+          f"captured {len(captured)} blocks, want {6 * shards}")
     with exact_float32():
         k_ms = p_ms = b_ms = 0.0
         bound_by, max_err = set(), 0.0
@@ -976,8 +1017,9 @@ def osblock_on_path(phase, runner, dets, masks, crops):
                   f"{tuple(x.shape)} {str(x.dtype)[6:]}: kernel {ks:.3f} ms, "
                   f"plain {ps:.3f} ms, bound {bs:.4f} ms ({by}), max abs err "
                   f"{err:.4g}, min cosine {cos:.6f}")
-        print(f"phase {phase} OSBlock kernel per frame (six blocks): "
-              f"{k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {b_ms:.4f} ms")
+        print(f"phase {phase} OSBlock kernel per frame ({len(captured)} "
+              f"blocks): {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound "
+              f"{b_ms:.4f} ms")
     return {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
             "bound_by": "bytes" if bound_by == {"bytes"} else "operations",
             "max_err": max_err}
@@ -1119,7 +1161,7 @@ def live_reid_phases(osblock_build, card):
                           crops_all[:LIVE_T])
     counters = (osblock_cuda, auction_cuda)
     want = {osblock_cuda: 6 * LIVE_T, auction_cuda: 2 * LIVE_T}
-    frame_ms = {}
+    frame_ms, outputs = {}, {}
     for label, cadence in (("every frame", None), ("cadence 8", CADENCE)):
         runner = MultiStreamRunner(init, step, LIVE_S, device="cuda",
                                    embed_fn=embed_fn, emb_cadence=cadence)
@@ -1135,6 +1177,7 @@ def live_reid_phases(osblock_build, card):
                      else -(-LIVE_S // cadence) * LIVE_N)
         fps = LIVE_S * LIVE_T / run_s
         frame_ms[label] = run_s * 1e3 / LIVE_T
+        outputs[label] = (outs, out_masks)
         print(f"phase 7 live ReID {label}: S={LIVE_S} N={LIVE_N} K={LIVE_K} "
               f"D={LIVE_D} osnet_x1_0 bf16 {CROP_HW[0]}x{CROP_HW[1]} T={LIVE_T}"
               f": {run_s * 1e3 / LIVE_T:.3f} ms per frame-batch (median "
@@ -1180,6 +1223,7 @@ def live_reid_phases(osblock_build, card):
           f"{LIVE_S} streams x {EQUAL_T} frames: {share}")
 
     return {"model": model, "osblock": block_stats, "frame_ms": frame_ms,
+            "outputs": outputs, "make": (init, step),
             "scene": (dets_all, masks_all, crops_all),
             "osblock_launches": launches[osblock_cuda],
             "auction_launches": launches[auction_cuda]}
@@ -1248,6 +1292,7 @@ def live_tracker_phases(phase, name, make, stages, model, scene, card,
             launches[m] += m.LAUNCHES
         emitted = check_live_outputs(f"{name} {label}", last[0], outs,
                                      out_masks)
+        result.setdefault("frame_ms", {})[label] = run_s * 1e3 / LIVE_T
         if budget is not None:
             per_crops = budget
             load = (f" budget={budget} of {float(valid.float().mean()):.0f} "
@@ -1445,9 +1490,9 @@ def serve_ticks(svc, submit, ticks, want, timer=None):
         clock["assemble"] = time.perf_counter() - t0
         return out
 
-    def counted_put(a, rows=None):
+    def counted_put(a, *args):
         t0 = time.perf_counter()
-        out = put(a, rows)
+        out = put(a, *args)
         clock["staging"] += time.perf_counter() - t0
         clock["bytes"] += out.numel() * out.element_size()
         return out
@@ -1504,8 +1549,8 @@ def profile_tick(svc, submit):
     sent = []  # what the tick copies to the card
     put = svc._put
 
-    def recording_put(a, rows=None):
-        out = put(a, rows)
+    def recording_put(a, *args):
+        out = put(a, *args)
         sent.append(out)
         return out
 
@@ -1672,11 +1717,17 @@ def serving_phase(phase, card, mux_build, runner_ms, live_runner_ms, model):
     check(svc._cad_compact, "cadence_compact is off")
     hs = [svc.attach() for _ in range(LIVE_S)]
 
-    def submit_live(t):
+    # bound now: (3) below rebinds dets and counts, and phase 19 submits
+    # these frames again
+    def submit_live_to(svc, hs, t, frames=(dets, counts, order, crops_host)):
+        dets, counts, order, crops_host = frames
         for s, h in enumerate(hs):
             n = counts[t, s]
             svc.submit(h, dets[t, s, :n], crops=crops_host[
                 (s - t) % LIVE_S][order[t, s, :n]])
+
+    def submit_live(t):
+        submit_live_to(svc, hs, t)
 
     osblock_cuda.LAUNCHES = auction_cuda.LAUNCHES = 0
     batches, rows = serve_ticks(svc, submit_live, ticks,
@@ -1710,7 +1761,9 @@ def serving_phase(phase, card, mux_build, runner_ms, live_runner_ms, model):
           f"card: {card}")
     print(f"phase {phase} serving BoT-SORT live profile of one tick: "
           f"{profiled}")
-    del batches, want, parts, crops0, crops_host
+    live = {"submit_to": submit_live_to, "ticks": ticks, "batches": batches,
+            "embed": embed}
+    del want, parts, crops0
 
     # ---- (3) gappy schedule and pipelined dispatch on 8 streams ------------
     gappy = [1, 0, 1, 1, 0, 0, 1, 1, 1, 0, 1, 1]
@@ -1759,7 +1812,7 @@ def serving_phase(phase, card, mux_build, runner_ms, live_runner_ms, model):
           f"emissions); two step_async ticks in flight = two step()s on "
           f"all {len(gappy)} ticks")
     return {"auction_launches": auction_launches + live_launches[1],
-            "osblock_launches": live_launches[0],
+            "osblock_launches": live_launches[0], "live": live,
             "timers": {name: (t.report(), medians[name])
                        for name, t in timers.items()}}
 
@@ -2124,6 +2177,316 @@ def utilities_phase(phase, card, io_build, model, timers):
           f"call), embeddings max |card - cpu| {warm_err:.3g} <= 1e-3")
     return {"auction_launches": auction_launches,
             "osblock_launches": osblock_launches}
+
+
+SHARDS = 2  # phase 19's shards, all on the one card
+SHARDED_REPEATS = 3  # timed runs of phase 19's paths, after one warm-up
+
+
+def sharded_runs(runner, legs, counters, want, label):
+    """One warm-up and SHARDED_REPEATS timed run()s of ``runner`` from a
+    reset state over ``legs`` (dets, masks[, crops]), each launching the
+    kernels of ``want`` ({module: count}) that many times; returns the
+    median ms per frame-batch, the run times and the last outputs."""
+    T_ = legs[0].shape[0]
+    times = []
+    for rep in range(1 + SHARDED_REPEATS):
+        runner.reset()
+        before = {m: m.LAUNCHES for m in counters}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs, out_masks = runner.run(*legs[:2], **(
+            {"embs": legs[2]} if len(legs) > 2 else {}))
+        torch.cuda.synchronize()
+        if rep:
+            times.append(time.perf_counter() - t0)
+        for m in counters:
+            got = m.LAUNCHES - before[m]
+            check(got == want[m], f"{label} run {rep}: {got} {m.__name__} "
+                  f"launches, want {want[m]}")
+    return float(np.median(times)) * 1e3 / T_, times, outs, out_masks
+
+
+def same_outputs(label, got, want):
+    """Identical masks, and the emitted rows (ids and boxes) bit for bit;
+    returns the emissions."""
+    (go, gm), (wo, wm) = got, want
+    check(torch.equal(gm, wm), f"{label}: masks differ from one device's in "
+          f"{int((gm != wm).sum())} slots")
+    check(torch.equal(go[gm], wo[wm]), f"{label}: emitted ids or boxes differ"
+          " from one device's")
+    check(int(gm.sum()) > 0, f"{label}: no emissions")
+    return int(gm.sum())
+
+
+def failover_across(label, make_one, make_sharded, submit, ticks, cut, work,
+                    card):
+    """The uninterrupted one-device run of ``ticks`` ticks against a run
+    cut after ``cut`` ticks whose state crosses layouts through a file:
+    sharded -> .npz -> one device, and one device -> torch file ->
+    sharded; each continuation must equal the uninterrupted run bit for
+    bit."""
+    from motcpp_tpu_torch.utils.checkpoint import load_state, save_state
+
+    want = run_service(make_one(), submit, range(ticks))
+    report = []
+    for fmt, first_make, then_make, way in (
+            ("npz", make_sharded, make_one, "sharded -> one device"),
+            ("pt", make_one, make_sharded, "one device -> sharded")):
+        first = first_make()
+        run_service(first, submit, range(cut))
+        path = work / f"{label.replace(' ', '_')}.{fmt}"
+        save_state(first.states, path)
+        svc = then_make()
+        svc.restore(load_state(svc._init_states(), path))
+        got = run_service(svc, submit, range(cut, ticks))
+        check(same_emissions(got, want[cut:]), f"{label}: {way} through "
+              f"{fmt} differs from the uninterrupted run")
+        report.append(f"{way} through {fmt} "
+                      f"({path.stat().st_size / 1e6:.1f} MB)")
+    emitted = sum(int(b.out_masks.sum()) for b in want[cut:])
+    print(f"phase 19 (e) {label}: {ticks} ticks uninterrupted on one device "
+          f"= {cut} ticks, checkpoint, {ticks - cut} ticks, "
+          f"{'; '.join(report)}: bit for bit ({emitted} emissions after the "
+          f"cut); card: {card}")
+
+
+def sharded_phase(phase, card, byte, live, hybrid, served_live, scene):
+    """Phase ``phase``: streams sharded over devices, SHARDS shards on the
+    one card (``devices=["cuda"] * SHARDS``). (a) the ByteTrack flagship
+    (phase 3's frames) through the sharded runner: phase 3's masks, ids
+    and boxes bit for bit, the auction kernel against its plain version on
+    each shard's own stage-1 and stage 2+3 inputs, ms per frame-batch
+    beside phase 3's; (b) emission_stats and per_stream_emissions over
+    (a)'s masks as shards equal plain reductions of phase 3's masks; (c)
+    live BoT-SORT at cadence 8 (phase 7's shape) through the runner and
+    through TrackingService with the compacted crops: phase 7's and phase
+    17's emissions; (d) live HybridSORT at a priority budget: at S*N (the
+    budget covers every shard) the one-device run, and at its deployed
+    0.8 each shard embeds exactly its half of the budget, timed beside
+    phase 14; (e) the flagship service's checkpoint across layouts; (f)
+    the two-process dryrun over gloo. Returns the kernels' launches on the
+    sharded paths and each kernel's largest difference from its plain
+    version on a shard's inputs."""
+    from motcpp_tpu_torch.appearance import osblock_cuda
+    from motcpp_tpu_torch.appearance.reid import make_embed_fn
+    from motcpp_tpu_torch.data import pack_valid_rows, synth_stream_dets
+    from motcpp_tpu_torch.models.bytetrack import (
+        ByteTrackConfig,
+        make_bytetrack,
+    )
+    from motcpp_tpu_torch.models.hybridsort import (
+        HybridSortConfig,
+        make_hybridsort,
+    )
+    from motcpp_tpu_torch.ops import auction_cuda
+    from motcpp_tpu_torch.parallel import (
+        Mesh,
+        MultiStreamRunner,
+        emission_stats,
+        per_stream_emissions,
+        shard_over_streams,
+    )
+    from motcpp_tpu_torch.parallel.multihost import dryrun_multihost
+    from motcpp_tpu_torch.serving import TrackingService
+
+    t_phase = time.perf_counter()
+    devices = ["cuda"] * SHARDS
+    mesh = Mesh(devices)
+    counters = (osblock_cuda, auction_cuda)
+    launches = {m: 0 for m in counters}
+
+    # ---- (a) the ByteTrack flagship over the shards ------------------------
+    dets, masks = byte["inputs"]
+    init, step = make_bytetrack(ByteTrackConfig(
+        max_tracks=K, max_dets=N, lap_impl="auction_pallas"), device="cuda")
+    runner = MultiStreamRunner(init, step, S, devices=devices)
+    for m in counters:
+        m.LAUNCHES = 0
+    ms, times, outs, out_masks = sharded_runs(
+        runner, (dets, masks), counters,
+        {auction_cuda: 2 * SHARDS * T, osblock_cuda: 0}, "sharded ByteTrack")
+    for m in counters:
+        launches[m] += m.LAUNCHES
+    emitted = same_outputs("sharded ByteTrack", (outs, out_masks),
+                           byte["outputs"])
+    print(f"phase {phase} (a) ByteTrack S={S} over {SHARDS} shards on one "
+          f"card, T={T}: {ms:.3f} ms per frame-batch (median of "
+          f"{SHARDED_REPEATS}, runs {[round(t * 1e3, 1) for t in times]} ms)"
+          f" beside phase 3's one device {byte['frame_ms']:.3f} ms "
+          f"({ms / byte['frame_ms']:.2f}x); masks, ids and boxes = phase 3's "
+          f"bit for bit ({emitted} emissions); {2 * SHARDS} auction launches"
+          f" a frame; card: {card}")
+    runner.reset()
+    runner.run(dets[: T // 2], masks[: T // 2])
+    stages = [f"shard {i} {name}" for i in range(SHARDS)
+              for name in ("stage 1", "stages 2+3")]
+    stats = auction_on_path(
+        phase, "sharded ByteTrack", stages,
+        lambda: runner.run(dets[T // 2: T // 2 + 1],
+                           masks[T // 2: T // 2 + 1]), card)
+    del runner
+
+    # ---- (b) the collectives over (a)'s masks ----------------------------
+    chunks = shard_over_streams(mesh, out_masks)
+    got = emission_stats(chunks, mesh)
+    om = byte["outputs"][1]
+    want = {"total_emissions": int(om.sum()), "frames_processed": T * S,
+            "active_streams": int(om.any(2).any(0).sum()),
+            "peak_tracks_per_frame": int(om.sum(2).max())}
+    per = per_stream_emissions(chunks, mesh)
+    check(got == want and emission_stats(out_masks, mesh) == want,
+          f"emission_stats {got} != the plain reductions {want}")
+    check(torch.equal(per, om.sum((0, 2), dtype=torch.int32)),
+          "per_stream_emissions differs from the plain reduction")
+    print(f"phase {phase} (b) emission_stats over {SHARDS} shards = plain "
+          f"reductions of phase 3's masks: {got}; per_stream_emissions = "
+          f"the plain per-stream sums (min {int(per.min())}, max "
+          f"{int(per.max())})")
+    del outs, out_masks, chunks
+
+    # ---- (c) live BoT-SORT at cadence 8: runner and service ---------------
+    dets_all, masks_all, crops_all = scene
+    legs = (dets_all[:LIVE_T], masks_all[:LIVE_T], crops_all[:LIVE_T])
+    embed = served_live["embed"]
+    runner = MultiStreamRunner(*live["make"], LIVE_S, devices=devices,
+                               embed_fn=embed, emb_cadence=CADENCE)
+    for m in counters:
+        m.LAUNCHES = 0
+    live_ms, times, *got = sharded_runs(
+        runner, legs, counters, {osblock_cuda: 6 * SHARDS * LIVE_T,
+                                 auction_cuda: 2 * SHARDS * LIVE_T},
+        "sharded BoT-SORT live")
+    emitted = same_outputs("sharded BoT-SORT live cadence 8", got,
+                           live["outputs"]["cadence 8"])
+    ticks = served_live["ticks"]
+    svc = TrackingService.from_tracker(
+        "botsort", LIVE_S, max_dets=LIVE_N, emb_dim=LIVE_D, devices=devices,
+        crop_hw=CROP_HW, embed_fn=embed, emb_cadence=CADENCE,
+        tracker_kw=dict(with_reid=True, max_tracks=LIVE_K,
+                        lap_impl="auction_pallas"))
+    check(svc._cad_compact, "the sharded service's cadence_compact is off")
+    hs = [svc.attach() for _ in range(LIVE_S)]
+    batches = []
+    for t in range(ticks):
+        served_live["submit_to"](svc, hs, t)
+        batches.append(svc.step())
+    for m in counters:
+        launches[m] += m.LAUNCHES
+    per_frame = 6 * SHARDS * (LIVE_T * (1 + SHARDED_REPEATS) + ticks)
+    check(osblock_cuda.LAUNCHES == per_frame,
+          f"sharded live: {osblock_cuda.LAUNCHES} OSBlock launches, want "
+          f"{per_frame} (6 a shard an embedded frame)")
+    check(same_emissions(batches, served_live["batches"]),
+          "the sharded service differs from phase 17's one-device service")
+    print(f"phase {phase} (c) BoT-SORT live ReID cadence {CADENCE}, S={LIVE_S}"
+          f" over {SHARDS} shards ({LIVE_S // SHARDS} streams, "
+          f"{LIVE_S // SHARDS // CADENCE * LIVE_N} crops a shard a frame): "
+          f"runner {live_ms:.3f} ms per frame-batch (runs "
+          f"{[round(t * 1e3, 1) for t in times]} ms) beside phase 7's "
+          f"{live['frame_ms']['cadence 8']:.3f} ms, emissions = phase 7's "
+          f"bit for bit ({emitted}); TrackingService over the shards with "
+          f"compacted crops, {ticks} ticks = phase 17's service bit for bit "
+          f"({sum(int(b.out_masks.sum()) for b in batches)} emissions); 6 "
+          f"OSBlock and 2 auction launches a shard a frame; card: {card}")
+    runner.reset()  # the kernel on each shard's 64-stream crops
+    blocks = [osblock_on_path(phase, runner, *legs, shards=SHARDS)]
+    del runner, svc, batches
+
+    # ---- (d) HybridSORT live at a priority budget -------------------------
+    def make():
+        return make_hybridsort(HybridSortConfig(
+            emb_dim=LIVE_D, max_tracks=LIVE_K, max_dets=LIVE_N,
+            lap_impl="auction_pallas", min_hits=1, with_reid=True),
+            device="cuda")
+
+    model_embed = make_embed_fn(live["model"], compute_dtype="bfloat16",
+                                fused=True, device="cuda")
+    batch_sizes = []
+
+    def sized_embed(crops):
+        batch_sizes.append(crops.shape[0])
+        return model_embed(crops)
+
+    full = LIVE_S * LIVE_N
+    for m in counters:
+        m.LAUNCHES = 0
+    got = {}
+    for n_dev in (None, SHARDS):
+        kw = ({"device": "cuda"} if n_dev is None else {"devices": devices})
+        got[n_dev] = MultiStreamRunner(
+            *make(), LIVE_S, embed_fn=sized_embed, crop_budget=full,
+            emb_priority=True, **kw).run(*legs[:2], embs=legs[2])
+    emitted = same_outputs(f"sharded HybridSORT live at budget {full}",
+                           got[SHARDS], got[None])
+    budget = round(HYBRID_PRIORITY * LIVE_S * LIVE_N)
+    runner = MultiStreamRunner(*make(), LIVE_S, devices=devices,
+                               embed_fn=sized_embed, crop_budget=budget,
+                               emb_priority=True)
+    batch_sizes.clear()
+    hybrid_ms, times, *_ = sharded_runs(
+        runner, legs, counters, {osblock_cuda: 6 * SHARDS * LIVE_T,
+                                 auction_cuda: 3 * SHARDS * LIVE_T},
+        "sharded HybridSORT live")
+    for m in counters:
+        launches[m] += m.LAUNCHES
+    check(batch_sizes == [budget // SHARDS] * (SHARDS * LIVE_T
+                                                * (1 + SHARDED_REPEATS)),
+          f"sharded HybridSORT embedded batches of {sorted(set(batch_sizes))}"
+          f" crops, want {budget // SHARDS}")
+    runner.reset()  # the kernel on each shard's share of the budget
+    blocks.append(osblock_on_path(phase, runner, *legs, shards=SHARDS))
+    label = f"priority {HYBRID_PRIORITY}"
+    print(f"phase {phase} (d) HybridSORT live ReID over {SHARDS} shards: at "
+          f"budget S*N={full} = one device bit for bit ({emitted} "
+          f"emissions); at {label} (budget {budget}) each shard embeds "
+          f"exactly {budget // SHARDS} crops a frame, {hybrid_ms:.3f} ms per "
+          f"frame-batch (runs {[round(t * 1e3, 1) for t in times]} ms) "
+          f"beside phase 14's one device {hybrid['frame_ms'][label]:.3f} ms;"
+          f" card: {card}")
+    del runner, got
+
+    # ---- (e) the flagship's checkpoint across layouts ----------------------
+    ticks, cut = FAILOVER_TICKS, FAILOVER_TICKS // 2
+    fdets, fmasks, _ = pack_valid_rows(*synth_stream_dets(
+        np.random.default_rng(0), ticks + 1, S, N, n_obj=N_OBJ))
+    counts = fmasks.sum(-1)
+
+    def flagship(n_dev):
+        def make_svc():
+            svc = TrackingService.from_tracker(
+                "bytetrack", S, max_dets=N,
+                **({"device": "cuda"} if n_dev is None
+                   else {"devices": devices}),
+                tracker_kw=dict(max_tracks=K, lap_impl="auction_pallas"))
+            svc.handles = [svc.attach() for _ in range(S)]
+            return svc
+        return make_svc
+
+    def submit(svc, t):
+        for s, h in enumerate(svc.handles):
+            svc.submit(h, fdets[t, s, :counts[t, s]])
+
+    for m in counters:
+        m.LAUNCHES = 0
+    with tempfile.TemporaryDirectory() as d:
+        failover_across("ByteTrack flagship", flagship(None),
+                        flagship(SHARDS), submit, ticks, cut, Path(d), card)
+    for m in counters:
+        launches[m] += m.LAUNCHES
+
+    # ---- (f) the two-process dryrun over gloo ------------------------------
+    report = dryrun_multihost(2, device="cuda")
+    print(f"phase {phase} (f) dryrun_multihost: {report['processes']} "
+          f"processes x {report['devices_per_process']} shards on "
+          f"{report['device']}, S={report['streams']}, counts over gloo = one"
+          f" process's ({report['emissions']} emissions), "
+          f"{report['seconds']:.1f} s; the phase took "
+          f"{time.perf_counter() - t_phase:.1f} s; card: {card}")
+    return {"auction_launches": launches[auction_cuda],
+            "osblock_launches": launches[osblock_cuda],
+            "auction_err": stats["auction_err"],
+            "osblock_err": max(b["max_err"] for b in blocks)}
 
 
 def main(argv=None):

@@ -20,7 +20,7 @@ import copy
 import numpy as np
 import torch
 
-from motcpp_tpu_torch.device import resolve_device
+from motcpp_tpu_torch.device import PerDevice, canonical_device, resolve_device
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -191,8 +191,7 @@ def make_embed_fn(model, norm=(IMAGENET_MEAN, IMAGENET_STD),
                   compute_dtype: str = "float32", folded: bool = False,
                   fused: bool = False, device="cuda"):
     """Build ``embed(crops (B, H, W, 3) uint8 BGR) -> (B, D) float32``,
-    L2-normalized, on ``device``, from an OSNet ``model`` (weights
-    included).
+    L2-normalized, from an OSNet ``model`` (weights included).
 
     Preprocessing is get_crops' (BGR -> RGB, /255, (x - mean) / std).
     compute_dtype "bfloat16" casts weights and activations. ``folded``
@@ -200,15 +199,28 @@ def make_embed_fn(model, norm=(IMAGENET_MEAN, IMAGENET_STD),
     every OSBlock through ``appearance/osblock.py::osblock_fused`` (the
     CUDA kernel on the card). The kernel takes any batch size, so no
     padding of the batch is needed.
+
+    The weights are made on ``device``. embed runs where its crops are: a
+    tensor's device, or ``device`` for host arrays. The weights are copied
+    to another device the first time crops arrive there, and reused after,
+    so one embed serves every shard of a stream-sharded runner (the JAX
+    package replicates them over the mesh).
     """
     dev = resolve_device(device)
     cdt = _check_compute_dtype(compute_dtype)
-    mean = torch.tensor(norm[0], dtype=torch.float32, device=dev)
-    std = torch.tensor(norm[1], dtype=torch.float32, device=dev)
 
-    def prep(crops):
-        x = torch.as_tensor(crops, device=dev).float().flip(-1) / 255.0
+    def norm_on(d):
+        return (torch.tensor(norm[0], dtype=torch.float32, device=d),
+                torch.tensor(norm[1], dtype=torch.float32, device=d))
+
+    def prep(crops, mean, std):
+        x = crops.float().flip(-1) / 255.0
         return ((x - mean) / std).to(cdt)
+
+    def on_device(crops):
+        if not isinstance(crops, torch.Tensor):
+            crops = torch.as_tensor(crops, device=dev)
+        return crops, weights.on(crops.device)
 
     if fused or folded:
         from motcpp_tpu_torch.appearance import osblock
@@ -216,27 +228,42 @@ def make_embed_fn(model, norm=(IMAGENET_MEAN, IMAGENET_STD),
 
         tree = {name: {k: v.to(dev, cdt) for k, v in leaf.items()}
                 for name, leaf in fold_osnet(model).items()}
+
+        def build(d):
+            tree_d = {name: {k: v.to(d) for k, v in leaf.items()}
+                      for name, leaf in tree.items()}
+            packed = osblock.pack_blocks(tree_d, cdt) if fused else None
+            return (tree_d, packed) + norm_on(d)
+
+        weights = PerDevice(build, dev)
         if fused:
-            packed = osblock.pack_blocks(tree, cdt)
 
             @torch.no_grad()
             def embed(crops):
-                feats = osblock.forward_fused(tree, prep(crops), packed)
+                crops, (tree_d, packed, mean, std) = on_device(crops)
+                feats = osblock.forward_fused(tree_d, prep(crops, mean, std),
+                                              packed)
                 return normalize_features(feats.float())
 
             return embed
 
         @torch.no_grad()
         def embed(crops):
-            return normalize_features(_forward_folded(tree, prep(crops)).float())
+            crops, (tree_d, _, mean, std) = on_device(crops)
+            return normalize_features(
+                _forward_folded(tree_d, prep(crops, mean, std)).float())
 
         return embed
 
     net = _model_on(model, dev, cdt)
+    weights = PerDevice(lambda d: (net if d == canonical_device(dev)
+                                   else _model_on(net, d, cdt),)
+                        + norm_on(d), dev)
 
     @torch.no_grad()
     def embed(crops):
-        return normalize_features(net(prep(crops)).float())
+        crops, (net_d, mean, std) = on_device(crops)
+        return normalize_features(net_d(prep(crops, mean, std)).float())
 
     return embed
 

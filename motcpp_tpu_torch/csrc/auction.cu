@@ -62,6 +62,7 @@
 
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstdint>
 
 namespace {
@@ -517,12 +518,22 @@ Shape one_warp_shape(const void* kernel, int K, int N, cudaError_t* err) {
   return best;
 }
 
-// The kernel's shared-memory limit, raised once per instantiation.
+// The kernel's shared-memory limit, raised once per instantiation on each
+// device: the attribute belongs to the function as loaded on the current
+// device, so a second card (a shard of a stream-sharded runner) needs its
+// own (one bit per device ordinal below 64).
 template <int T, int KW, int G>
 cudaError_t allow_smem() {
-  static cudaError_t err = cudaFuncSetAttribute(
+  static std::atomic<unsigned long long> raised{0};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = 1ull << (device & 63);
+  if (raised.load(std::memory_order_relaxed) & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(
       auction_kernel<T, KW, G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(kMaxSmem));
+  if (err == cudaSuccess) raised.fetch_or(bit, std::memory_order_relaxed);
   return err;
 }
 

@@ -26,7 +26,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from motcpp_tpu_torch.device import resolve_device
+from motcpp_tpu_torch.device import PerDevice, resolve_device
 from motcpp_tpu_torch.models import register
 from motcpp_tpu_torch.models.base import BaseTrackerWrapper
 from motcpp_tpu_torch.ops import select
@@ -142,9 +142,12 @@ def make_boosttrack(cfg: BoostTrackConfig, device="cuda"):
     K = cfg.max_tracks
     D = cfg.emb_dim
     dev = resolve_device(device)
-    Q = torch.diag(torch.tensor(_Q_DIAG, device=dev))
-    R = torch.diag(torch.tensor(_R_DIAG, device=dev))
     P0 = torch.diag(torch.tensor(_P0_DIAG, device=dev))
+    # the step's constants on the device of its inputs
+    consts = PerDevice.tensors(dev, torch.diag(torch.tensor(_Q_DIAG,
+                                                            device=dev)),
+                               torch.diag(torch.tensor(_R_DIAG, device=dev)),
+                               P0)
 
     def init_fn(n_streams: int = 1) -> BoostState:
         S = int(n_streams)
@@ -171,6 +174,7 @@ def make_boosttrack(cfg: BoostTrackConfig, device="cuda"):
 
     def step_fn(state: BoostState, dets, det_mask, embs=None, warp=None):
         S, N = det_mask.shape
+        Q, R, P0 = consts.on(dets.device)
         frame = state.frame_count + 1
         det_xyxy = dets[..., :4]
         active = state.active

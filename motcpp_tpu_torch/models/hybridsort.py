@@ -29,7 +29,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from motcpp_tpu_torch.device import resolve_device
+from motcpp_tpu_torch.device import PerDevice, resolve_device
 from motcpp_tpu_torch.models import register
 from motcpp_tpu_torch.models.base import BaseTrackerWrapper
 from motcpp_tpu_torch.models.ocsort import _NO_AGE, _gated_rematch
@@ -161,9 +161,12 @@ def make_hybridsort(cfg: HybridSortConfig, device="cuda"):
     R = cfg.ring
     D = cfg.emb_dim
     dev = resolve_device(device)
-    Q9 = torch.diag(torch.tensor(_Q9_DIAG, device=dev))
-    R5 = torch.diag(torch.tensor(_R5_DIAG, device=dev))
     P09 = torch.diag(torch.tensor(_P09_DIAG, device=dev))
+    # the step's constants on the device of its inputs
+    consts = PerDevice.tensors(dev, torch.diag(torch.tensor(_Q9_DIAG,
+                                                            device=dev)),
+                               torch.diag(torch.tensor(_R5_DIAG, device=dev)),
+                               P09)
     # giou, ciou and diou are plain IoU in the reference's private
     # dispatch (hybridsort.cpp:579-592)
     asso = hmiou_batch if cfg.asso_func == "hmiou" else iou_batch
@@ -227,6 +230,7 @@ def make_hybridsort(cfg: HybridSortConfig, device="cuda"):
         v["cls"] = torch.where(m, dets[..., 5].gather(1, jl), v["cls"])
         v["det_ind"] = torch.where(m, j, v["det_ind"])
 
+        R5 = consts.on(dets.device)[1]
         ux, uP = _kf_update(v["x"], v["P"], _bbox_to_z5(dbox, dconf), R5)
         v["x"] = torch.where(m[..., None], ux, v["x"])
         v["P"] = torch.where(m[..., None, None], uP, v["P"])
@@ -256,6 +260,7 @@ def make_hybridsort(cfg: HybridSortConfig, device="cuda"):
 
     def step_fn(state: HybridState, dets, det_mask, embs=None, warp=None):
         S, N = det_mask.shape
+        Q9, R5, P09 = consts.on(dets.device)
         frame = state.frame_count + 1
         det_conf = dets[..., 4]
         det_xyxy = dets[..., :4]

@@ -28,7 +28,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from motcpp_tpu_torch.device import resolve_device
+from motcpp_tpu_torch.device import PerDevice, resolve_device
 from motcpp_tpu_torch.models import register
 from motcpp_tpu_torch.models.base import BaseTrackerWrapper
 from motcpp_tpu_torch.ops.lap import solve_lap_masked
@@ -180,10 +180,14 @@ def make_ucmctrack(cfg: UCMCConfig, device="cuda"):
     Q = G @ torch.diag(torch.tensor([cfg.wx, cfg.wy], device=dev)) @ G.T
     P0 = torch.diag(torch.tensor([1.0, cfg.vmax ** 2 / 3.0, 1.0,
                                   cfg.vmax ** 2 / 3.0], device=dev))
-    eye4 = torch.eye(4, device=dev)
     inv_a = cfg.inv_A()
     if inv_a is not None:
         inv_a = torch.from_numpy(inv_a).to(dev)
+    # the step's constants on the device of its inputs
+    consts = PerDevice(lambda d: (F.to(d), Q.to(d), P0.to(d),
+                                  torch.eye(4, device=d),
+                                  None if inv_a is None else inv_a.to(d)),
+                       dev)
 
     def _dist(x, P, y, R):
         """(S, K, N) Mahalanobis + ln|S| of every track-det pair
@@ -198,7 +202,7 @@ def make_ucmctrack(cfg: UCMCConfig, device="cuda"):
                 + d1 * (Sinv[..., 1, 0] * d0 + Sinv[..., 1, 1] * d1))
         return maha + torch.log(torch.clamp_min(det, 1e-30))
 
-    def _kf_update(x, P, y, R):
+    def _kf_update(x, P, y, R, eye4):
         """Joseph-form update of (S, K) tracks with one measurement
         each."""
         Sinv, _ = inv2(_hph(P) + R)
@@ -238,6 +242,7 @@ def make_ucmctrack(cfg: UCMCConfig, device="cuda"):
 
     def step_fn(state: UCMCState, dets, det_mask, embs=None):
         S, N, _ = dets.shape
+        F, Q, P0, eye4, inv_a = consts.on(dets.device)
         frame = state.frame_count + 1
         det_conf = dets[..., 4]
         det_xyxy = dets[..., :4]
@@ -297,7 +302,7 @@ def make_ucmctrack(cfg: UCMCConfig, device="cuda"):
         drow = gather_rows(dets, j123)
         ux, uP = _kf_update(x, P, gather_rows(y, j123),
                             gather_rows(Rm.reshape(S, N, 4), j123)
-                            .reshape(S, K, 2, 2))
+                            .reshape(S, K, 2, 2), eye4)
         x = torch.where(m123[..., None], ux, x)
         P = torch.where(m123[..., None, None], uP, P)
         death = torch.where(m123, 0, death)

@@ -1,15 +1,18 @@
-"""Multi-stream tracking on one device: all streams per step, a loop
-over frames.
+"""Multi-stream tracking: all streams per step, a loop over frames, the
+stream axis sharded over devices.
 
 Counterpart of ``motcpp_tpu/parallel/streams.py`` (``make_rollout``,
 ``make_rollout_embs``, ``make_rollout_general``, ``embedding_priority``
-and the single-device ``MultiStreamRunner``). The step already takes
-every stream at once (a leading S dimension), so a rollout is a Python
-loop over the T frames, where the JAX package scans. With an
-``embed_fn`` the embedding leg is live ReID: the rollout takes raw uint8
-crops and runs the CNN over each frame's crops before the tracker step.
-With a ``cmc_fn`` the warp leg is live camera motion: the rollout takes
-grayscale frames and estimates each frame's warps on the device.
+and ``MultiStreamRunner``). The step already takes every stream at once
+(a leading S dimension), so a rollout is a Python loop over the T
+frames, where the JAX package scans. With an ``embed_fn`` the embedding
+leg is live ReID: the rollout takes raw uint8 crops and runs the CNN
+over each frame's crops before the tracker step. With a ``cmc_fn`` the
+warp leg is live camera motion: the rollout takes grayscale frames and
+estimates each frame's warps on the device. Given ``devices``, the
+runner splits the streams into one shard per device, each run by a
+one-device runner on its device, where the JAX package runs its rollout
+under ``shard_map``; the shards never communicate.
 """
 
 from __future__ import annotations
@@ -21,6 +24,11 @@ import torch
 
 from motcpp_tpu_torch.device import resolve_device
 from motcpp_tpu_torch.ops.iou import iou_batch
+from motcpp_tpu_torch.parallel.collectives import (
+    Mesh,
+    resolve_mesh,
+    shard_over_streams,
+)
 
 
 def make_rollout(step_fn: Callable):
@@ -250,8 +258,29 @@ def _copy(states):
     return type(states)(*(t.clone() for t in states))
 
 
+def state_to(states, device):
+    """``states`` with every field on ``device`` (the fields already there
+    are not copied)."""
+    return type(states)(*(t.to(device) for t in states))
+
+
+def shard_state(states, mesh: Mesh):
+    """A state over all S streams as len(mesh) states over S / len(mesh)
+    streams each, shard i on ``mesh[i]``."""
+    fields = [shard_over_streams(mesh, t, t_leading=False) for t in states]
+    return [type(states)(*(f[i] for f in fields)) for i in range(len(mesh))]
+
+
+def gather_state(shards, device):
+    """The per-shard states of :func:`shard_state` as one state over all
+    streams on ``device`` (a new copy)."""
+    return type(shards[0])(*(torch.cat([t.to(device) for t in field])
+                             for field in zip(*shards)))
+
+
 class MultiStreamRunner:
-    """Runs S streams through a tracker step on one device.
+    """Runs S streams through a tracker step on one device, or sharded
+    over ``devices``.
 
     Example:
         init_fn, step_fn = make_bytetrack(cfg, device="cuda")
@@ -272,6 +301,27 @@ class MultiStreamRunner:
     estimated on the device from the previous frame, which carries
     across run() calls (the first frame ever gets the identity). The
     state carries across ``run()`` calls until ``reset()``.
+
+    Sharded (``devices``, a list of devices or a
+    :class:`~motcpp_tpu_torch.parallel.collectives.Mesh`, which may name
+    one device more than once): S must divide over the devices, and shard
+    i runs streams ``[i*S/n, (i+1)*S/n)`` on ``devices[i]`` with the same
+    step (whose constants follow its inputs' device) and ``embed_fn``
+    (whose weights are copied to each device once). ``crop_budget`` is
+    the global budget and must divide too: each shard embeds at most
+    ``crop_budget // n`` crops a frame, as in the JAX package, so at a
+    budget that binds a sharded runner does not equal a one-device one.
+    The cadence and the priority use each shard's global stream ids, and
+    each shard carries its own previous detections and frames. ``run()``
+    takes its inputs on the host or on any device, launches every shard
+    before it reads anything back, and returns the outputs concatenated
+    along S on ``devices[0]``; ``init_states``, ``states``,
+    ``set_states`` and ``run(states=...)`` speak the one-device state
+    over all S streams (on ``devices[0]``), so a carry saved from a
+    sharded runner loads into a one-device runner and the other way
+    round. Without ``devices`` the runner runs on ``device``; given
+    ``devices``, ``device`` must be left at its default or name
+    ``devices[0]``.
     """
 
     def __init__(self, init_fn: Callable, step_fn: Callable, n_streams: int,
@@ -280,8 +330,18 @@ class MultiStreamRunner:
                  crop_budget: int | None = None,
                  emb_cadence: int | None = None, emb_priority: bool = False,
                  priority_rot: int = 8, cmc_fn: Callable | None = None,
-                 cmc_scale: float = 1.0):
+                 cmc_scale: float = 1.0, devices=None):
         self.n_streams = int(n_streams)
+        self.devices = None
+        self._shards = None
+        if devices is not None:
+            self._init_shards(
+                init_fn, step_fn, resolve_mesh(device, devices), dict(
+                    with_embs=with_embs, with_warps=with_warps,
+                    embed_fn=embed_fn, emb_cadence=emb_cadence,
+                    emb_priority=emb_priority, priority_rot=priority_rot,
+                    cmc_fn=cmc_fn, cmc_scale=cmc_scale), crop_budget)
+            return
         self.device = resolve_device(device)
         self.with_embs = bool(with_embs) or embed_fn is not None
         self.with_warps = bool(with_warps)
@@ -297,11 +357,34 @@ class MultiStreamRunner:
             emb_cadence=emb_cadence, emb_priority=self.emb_priority,
             priority_rot=priority_rot, cmc_fn=cmc_fn, cmc_scale=cmc_scale)
         self._frame0 = 0
+        self._first_stream = 0  # global id of stream 0 (a shard's offset)
         self._prev_dets = None  # priority mode: (dets, mask) of the last frame
         self._prev_frames = None  # live camera motion: the last frame
         self._states = None
 
+    def _init_shards(self, init_fn, step_fn, mesh, kw, crop_budget):
+        per_shard = mesh.shard_size(self.n_streams)
+        if crop_budget is not None:
+            if kw["embed_fn"] is None:
+                raise ValueError("crop_budget requires embed_fn (live ReID)")
+            crop_budget = mesh.shard_size(int(crop_budget), "crop_budget")
+        self.devices = mesh
+        self.device = mesh[0]
+        self._init_fn = init_fn
+        self._shards = []
+        for i, dev in enumerate(mesh):
+            shard = MultiStreamRunner(
+                lambda S, dev=dev: state_to(init_fn(S), dev), step_fn,
+                per_shard, device=dev, crop_budget=crop_budget, **kw)
+            shard._first_stream = i * per_shard
+            self._shards.append(shard)
+        for attr in ("with_embs", "with_warps", "with_cmc", "emb_cadence",
+                     "emb_priority"):
+            setattr(self, attr, getattr(self._shards[0], attr))
+
     def init_states(self):
+        if self._shards is not None:
+            return state_to(self._init_fn(self.n_streams), self.device)
         return self._init_fn(self.n_streams)
 
     def run(self, dets, masks, embs=None, warps=None, states=None,
@@ -318,6 +401,9 @@ class MultiStreamRunner:
         every detection counts as novel on the first frame, and under
         live camera motion the first frame's warps come from the
         carried previous frame (as in the JAX package)."""
+        if self._shards is not None:
+            return self._run_shards(dets, masks, embs, warps, states,
+                                    frames, frame0)
         if (embs is not None) != self.with_embs:
             raise ValueError(
                 "pass embs iff the runner was built with embeddings")
@@ -375,7 +461,9 @@ class MultiStreamRunner:
         lead = ()
         if self._use_phase:
             f0 = int(frame0 or 0) if stateless else self._frame0
-            lead = (f0, torch.arange(self.n_streams, device=self.device))
+            lead = (f0, torch.arange(self._first_stream,
+                                     self._first_stream + self.n_streams,
+                                     device=self.device))
             if self.emb_priority:
                 prev = None if stateless else self._prev_dets
                 if prev is None:  # no previous observations: all novel
@@ -400,19 +488,55 @@ class MultiStreamRunner:
         self._states = states
         return outs
 
+    def _run_shards(self, dets, masks, embs, warps, states, frames, frame0):
+        shape = tuple(np.shape(dets))
+        if len(shape) != 4 or shape[1] != self.n_streams:
+            raise ValueError(
+                f"dets must be (T, {self.n_streams}, N, D), got {shape}")
+        if tuple(np.shape(masks)) != shape[:3]:
+            raise ValueError(
+                f"masks must be {shape[:3]}, got {tuple(np.shape(masks))}")
+        n = len(self._shards)
+        legs = [[None] * n if x is None
+                else shard_over_streams(self.devices, x)
+                for x in (dets, masks, embs, warps, frames)]
+        parts = [None] * n if states is None \
+            else shard_state(states, self.devices)
+        # every shard launched before any output is read back
+        outs = [shard.run(d, m, embs=e, warps=w, states=st, frames=f,
+                          frame0=frame0)
+                for shard, d, m, e, w, f, st in zip(self._shards, *legs,
+                                                    parts)]
+        return tuple(torch.cat([o[i].to(self.device, non_blocking=True)
+                                for o in outs], 1) for i in range(2))
+
     def set_states(self, states, frame0: int = 0):
         """Install a carried state (for example one restored from a
         checkpoint) and the cadence phase; later ``run()`` calls continue
         from them."""
+        if self._shards is not None:
+            for shard, part in zip(self._shards,
+                                   shard_state(states, self.devices)):
+                shard.set_states(part, frame0)
+            return
         self._states = _copy(states)
         self._frame0 = int(frame0)
 
     @property
     def states(self):
         """A copy of the carried state, or None before the first run."""
+        if self._shards is not None:
+            if self._shards[0]._states is None:
+                return None
+            return gather_state([sh._states for sh in self._shards],
+                                self.device)
         return None if self._states is None else _copy(self._states)
 
     def reset(self):
+        if self._shards is not None:
+            for shard in self._shards:
+                shard.reset()
+            return
         self._states = None
         self._frame0 = 0
         self._prev_dets = None

@@ -1,4 +1,4 @@
-"""TrackingService: a continuous multi-stream serving loop on one device.
+"""TrackingService: a continuous multi-stream serving loop.
 
 Counterpart of ``motcpp_tpu/serving/service.py``. Glue between the
 ingest runtime (:mod:`motcpp_tpu_torch.serving.mux`, native C++ frame
@@ -22,7 +22,8 @@ Exact per-stream semantics under irregular arrival:
 The reference has no serving layer; its concurrency story is one
 tracker instance per thread (reference: docs/guides/architecture.md:
 246-258). This module is that story's batched equivalent: the threads
-only move frames; one device steps every stream at once.
+only move frames; one device steps every stream at once, or, given
+``devices``, each device steps its shard of the slots.
 """
 
 from __future__ import annotations
@@ -35,7 +36,13 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from motcpp_tpu_torch.device import resolve_device
+from motcpp_tpu_torch.device import PerDevice, resolve_device
+from motcpp_tpu_torch.parallel.collectives import resolve_mesh
+from motcpp_tpu_torch.parallel.streams import (
+    gather_state,
+    shard_state,
+    state_to,
+)
 from motcpp_tpu_torch.serving.mux import create_mux
 
 
@@ -98,6 +105,21 @@ def _sel(mask, a, b):
     return torch.where(mask.view(mask.shape + (1,) * (a.dim() - 1)), a, b)
 
 
+@dataclasses.dataclass
+class _Shard:
+    """The slots ``rows`` of every batch, stepped on ``device`` by
+    ``step`` (a make_service_step whose fresh state lives there): their
+    global ids there (for the cadence), their state and, under
+    ``emb_priority``, the previous tick's dets and masks there."""
+
+    device: torch.device
+    rows: slice
+    slot_ids: torch.Tensor
+    step: Callable
+    states: Any = None
+    prev_dm: list | None = None
+
+
 def make_service_step(init_fn: Callable, step_fn: Callable, with_embs: bool,
                       with_warps: bool = False,
                       embed_fn: Callable | None = None,
@@ -111,7 +133,9 @@ def make_service_step(init_fn: Callable, step_fn: Callable, with_embs: bool,
     Returns ``svc(states, dets, masks, present, reset[, embs][, warps])
     -> (states, (outs, out_masks))``, every input with a leading S axis;
     ``init_fn(S)`` and ``step_fn`` are a tracker's stream-batched pair
-    (``make_<tracker>(cfg)``). ``reset`` slots are re-initialised BEFORE
+    (``make_<tracker>(cfg)``); svc runs on the device of its inputs,
+    where ``init_fn(S)`` must make its state. ``reset`` slots are
+    re-initialised BEFORE
     the step (fresh attach); ``~present`` slots keep their previous
     state AFTER it (absent stream: the step still runs, its writes are
     discarded).
@@ -131,11 +155,11 @@ def make_service_step(init_fn: Callable, step_fn: Callable, with_embs: bool,
     compact_crops (cadence only): the crops input holds only the slots
     scheduled this tick, (S//k, n, Hc, Wc, 3) in slot order, and is
     scattered back to the full (S, n, ...) layout on the device. With
-    ``stream_ids`` the service's 0..S-1 (S divisible by k), the
-    scheduled slots are every k-th slot from ``(-tick) % k``: the
-    schedule is exact, computed from the host's ``tick``, so no value is
-    read back from the device. The embeddings are bit-identical to the
-    full transfer's.
+    ``stream_ids`` consecutive from a multiple of k (the service's, or a
+    shard's) and S divisible by k, the scheduled slots are every k-th
+    slot from ``(-tick) % k``: the schedule is exact, computed from the
+    host's ``tick``, so no value is read back from the device. The
+    embeddings are bit-identical to the full transfer's.
     """
     use_cadence = emb_cadence is not None and int(emb_cadence) > 1
     if use_cadence and embed_fn is None:
@@ -216,7 +240,7 @@ def make_service_step(init_fn: Callable, step_fn: Callable, with_embs: bool,
 
 class TrackingService:
     """Continuous tracking over dynamically attached streams, on one
-    device.
+    device or sharded over several.
 
     Example:
         svc = TrackingService.from_tracker("bytetrack", n_streams=64)
@@ -235,9 +259,17 @@ class TrackingService:
         device: where the state lives and the step runs (default
             ``"cuda"``; raises where there is none, ``"cpu"`` runs on
             the CPU).
-
-    One device only: the JAX service's ``devices`` and its stream
-    sharding over a mesh are not ported (ROADMAP.md queue 1, item 15).
+        devices: shard the slots over these devices (a list, or a
+            parallel/collectives.py::Mesh; one device may appear more
+            than once). S must divide over them; shard i holds slots
+            ``[i*S/n, (i+1)*S/n)`` on ``devices[i]``, staged there from
+            the mux's batch and stepped there. ``device`` must then be
+            left at its default or name ``devices[0]``, where the
+            outputs are gathered. ``states``, ``restore``,
+            ``export_stream``, ``import_stream`` and ``_init_states``
+            speak the one-device state over all S slots (on
+            ``devices[0]``), so a checkpoint or a stream moves between a
+            one-device and a sharded service either way.
     """
 
     def __init__(self, init_fn: Callable, step_fn: Callable, n_streams: int,
@@ -249,7 +281,7 @@ class TrackingService:
                  emb_cadence: int | None = None,
                  emb_priority: bool = False,
                  priority_rot: int = 8,
-                 cadence_compact: bool | None = None):
+                 cadence_compact: bool | None = None, devices=None):
         """crop_hw + embed_fn switch the service to LIVE ReID: producers
         submit raw (n, Hc, Wc, 3) uint8 detection crops instead of
         embeddings (the mux carries them natively), and the CNN runs on
@@ -271,10 +303,13 @@ class TrackingService:
 
         cadence_compact: send only the scheduled slots' crops to the
         device each tick (k x fewer bytes, bit-identical output).
-        Default None = on whenever n_streams divides by k; False forces
-        the full transfer, True raises if the divisibility does not
-        hold."""
-        self.device = resolve_device(device)
+        Default None = on whenever the slots of a device divide by k;
+        False forces the full transfer, True raises if the divisibility
+        does not hold.
+
+        Sharded, crop_budget is the global budget: it must divide over
+        the devices, and each shard embeds at most crop_budget / n crops
+        a tick (the JAX package's rule)."""
         self.n_streams = int(n_streams)
         self.max_dets = int(max_dets)
         self.emb_dim = int(emb_dim)
@@ -285,9 +320,21 @@ class TrackingService:
             raise ValueError("crop_hw and embed_fn go together")
         if embed_fn is not None and self.emb_dim <= 0:
             raise ValueError("live ReID needs emb_dim = feature width")
+        self.devices = (None if devices is None
+                        else resolve_mesh(device, devices))
+        self.device = (resolve_device(device) if devices is None
+                       else self.devices[0])
+        devs = self.devices or (self.device,)
+        per_shard = self.n_streams // len(devs)
+        if self.n_streams % len(devs):
+            raise ValueError(f"n_streams={n_streams} must divide evenly "
+                             f"over {len(devs)} devices")
         if crop_budget is not None and embed_fn is None:
             raise ValueError("crop_budget requires live ReID "
                              "(crop_hw + embed_fn)")
+        if crop_budget is not None and crop_budget % len(devs):
+            raise ValueError(f"crop_budget={crop_budget} must divide evenly "
+                             f"over {len(devs)} devices")
         self.emb_cadence = int(emb_cadence) if emb_cadence else 1
         self._use_cadence = self.emb_cadence > 1
         if self._use_cadence and embed_fn is None:
@@ -300,16 +347,17 @@ class TrackingService:
         if self.emb_priority and self._use_cadence:
             raise ValueError("emb_priority replaces emb_cadence; set one")
         self._use_adv = self._use_cadence or self.emb_priority
-        self._prev_dm = None  # previous tick's (dets, masks) for priority
         # compacted crop transfer: with cadence k, only the S/k slots
-        # scheduled this tick send their crops; needs S divisible by k
+        # scheduled this tick send their crops; needs each shard's slot
+        # count divisible by k
         self._cad_compact = (self._use_cadence
-                             and self.n_streams % self.emb_cadence == 0)
+                             and per_shard % self.emb_cadence == 0)
         if cadence_compact is not None:
             if cadence_compact and not self._cad_compact:
                 raise ValueError(
-                    "cadence_compact needs emb_cadence > 1 and n_streams "
-                    f"to divide by it (n_streams={n_streams}, "
+                    "cadence_compact needs emb_cadence > 1 and the slots "
+                    "of a device to divide by it (n_streams="
+                    f"{n_streams}, devices={len(devs)}, "
                     f"k={self.emb_cadence})"
                 )
             self._cad_compact = bool(cadence_compact)
@@ -321,15 +369,28 @@ class TrackingService:
             crop_hw=self.crop_hw,
         )
         self._init_fn = init_fn
-        self._svc = make_service_step(
-            init_fn, step_fn, with_embs=self.emb_dim > 0,
-            with_warps=self.with_warps, embed_fn=embed_fn,
-            crop_budget=crop_budget, emb_cadence=emb_cadence,
-            emb_priority=self.emb_priority, priority_rot=priority_rot,
-            compact_crops=self._cad_compact,
+        step_kw = dict(
+            with_embs=self.emb_dim > 0, with_warps=self.with_warps,
+            embed_fn=embed_fn,
+            crop_budget=(None if crop_budget is None
+                         else int(crop_budget) // len(devs)),
+            emb_cadence=emb_cadence, emb_priority=self.emb_priority,
+            priority_rot=priority_rot, compact_crops=self._cad_compact,
         )
-        self._slot_ids = torch.arange(self.n_streams, device=self.device)
-        self._states = None
+        if devices is None:
+            inits = [init_fn]
+        else:
+            # the reset select's fresh state, made once on each device
+            # (init_fn makes it on devices[0]), not copied every tick
+            fresh = PerDevice(lambda d: state_to(init_fn(per_shard), d),
+                              devs[0])
+            inits = [lambda S, d=d: fresh.on(d) for d in devs]
+        self._shards = [
+            _Shard(dev, slice(i * per_shard, (i + 1) * per_shard),
+                   torch.arange(i * per_shard, (i + 1) * per_shard,
+                                device=dev),
+                   make_service_step(init, step_fn, **step_kw))
+            for i, (dev, init) in enumerate(zip(devs, inits))]
         self._lock = threading.Lock()
         self._reset = np.zeros((self.n_streams,), bool)
         self._gen = np.zeros((self.n_streams,), np.int64)
@@ -342,9 +403,9 @@ class TrackingService:
     @classmethod
     def from_tracker(cls, name: str, n_streams: int, max_dets: int = 32,
                      emb_dim: int = 0, tracker_kw: dict | None = None,
-                     device="cuda", **service_kw):
+                     device="cuda", devices=None, **service_kw):
         """Build a service from a tracker name ("bytetrack", "sort", ...)
-        on ``device``.
+        on ``device``, or sharded over ``devices``.
 
         tracker_kw goes to the tracker's config dataclass (thresholds,
         max_tracks, lap_impl, ...); capacities are filled from the
@@ -368,9 +429,11 @@ class TrackingService:
         kw.setdefault("max_dets", max_dets)
         if emb_dim > 0 and "emb_dim" in cfg_cls.__dataclass_fields__:
             kw.setdefault("emb_dim", emb_dim)
-        init_fn, step_fn = make(cfg_cls(**kw), device=device)
+        home = device if devices is None else resolve_mesh(device, devices)[0]
+        init_fn, step_fn = make(cfg_cls(**kw), device=home)
         return cls(init_fn, step_fn, n_streams=n_streams, max_dets=max_dets,
-                   emb_dim=emb_dim, device=device, **service_kw)
+                   emb_dim=emb_dim, device=device, devices=devices,
+                   **service_kw)
 
     # ------------------------------------------------------------------
     def attach(self) -> StreamHandle:
@@ -427,44 +490,60 @@ class TrackingService:
         with self._lock:
             reset = self._reset.copy()
             self._reset[:] = False
-        if self._states is None:
-            self._states = self._init_states()
-        dets_d, mask_d = self._put(dets), self._put(mask)
-        args = [dets_d, mask_d, self._put(present), self._put(reset)]
-        if self._use_adv:
-            args += [self._ticks, self._slot_ids]
-        if self.emb_priority:
-            args += self._prev_dm or [torch.zeros_like(dets_d),
-                                      torch.zeros_like(mask_d)]
-        if self._embed_fn is not None:
-            rows = None
-            if self._cad_compact:
-                # the slots scheduled this tick, as make_service_step
-                # derives them from the tick
-                rows = np.arange((-self._ticks) % self.emb_cadence,
-                                 self.n_streams, self.emb_cadence)
-            args.append(self._put(crops, rows))
-        elif self.emb_dim > 0:
-            args.append(self._put(embs))
-        if self.with_warps:
-            args.append(self._put(warps))
-        self._states, (outs, out_masks) = self._svc(self._states, *args)
-        if self.emb_priority:
-            self._prev_dm = [dets_d, mask_d]
-        self._ticks += 1
-        return PendingBatch(present=present, _outs=outs,
-                            _out_masks=out_masks, _t0=t0, _svc_ref=self)
+        if self._shards[0].states is None:
+            self._init_shard_states()
+        outs, out_masks = [], []
+        for sh in self._shards:
+            def put(a, rows=sh.rows, dev=sh.device):
+                return self._put(a, rows, dev)
 
-    def _put(self, a: np.ndarray, rows=None) -> torch.Tensor:
-        """A copy of host array ``a`` (of its ``rows`` along axis 0) on
-        the service's device, never a view of ``a``: the mux overwrites
-        its batch buffers on the next assemble, so a tensor that aliased
-        one would change under whoever holds it (the priority mode holds
-        the previous tick's dets). On a CUDA device the copy goes through
-        pinned memory with ``non_blocking=True``, so the dispatch does not
-        wait for the device; PyTorch's pinned-memory cache hands the block
-        out again only after that transfer has completed."""
-        if self.device.type != "cuda":
+            dets_d, mask_d = put(dets), put(mask)
+            args = [dets_d, mask_d, put(present), put(reset)]
+            if self._use_adv:
+                args += [self._ticks, sh.slot_ids]
+            if self.emb_priority:
+                args += sh.prev_dm or [torch.zeros_like(dets_d),
+                                       torch.zeros_like(mask_d)]
+            if self._embed_fn is not None:
+                rows = sh.rows
+                if self._cad_compact:
+                    # the shard's slots scheduled this tick, as
+                    # make_service_step derives them from the tick
+                    rows = np.arange(
+                        rows.start + (-self._ticks) % self.emb_cadence,
+                        rows.stop, self.emb_cadence)
+                args.append(put(crops, rows))
+            elif self.emb_dim > 0:
+                args.append(put(embs))
+            if self.with_warps:
+                args.append(put(warps))
+            sh.states, (o, m) = sh.step(sh.states, *args)
+            if self.emb_priority:
+                sh.prev_dm = [dets_d, mask_d]
+            outs.append(o)
+            out_masks.append(m)
+        self._ticks += 1
+        if len(outs) > 1:  # gathered on devices[0]
+            outs, out_masks = ([torch.cat([t.to(self.device, non_blocking=True)
+                                           for t in ts])]
+                               for ts in (outs, out_masks))
+        return PendingBatch(present=present, _outs=outs[0],
+                            _out_masks=out_masks[0], _t0=t0, _svc_ref=self)
+
+    def _put(self, a: np.ndarray, rows=None, device=None) -> torch.Tensor:
+        """A copy of host array ``a`` (of its ``rows`` along axis 0, a
+        slice or indices) on ``device`` (default: the service's), never a
+        view of ``a``: the mux overwrites its batch buffers on the next
+        assemble, so a tensor that aliased one would change under whoever
+        holds it (the priority mode holds the previous tick's dets). On a
+        CUDA device the copy goes through pinned memory with
+        ``non_blocking=True``, so the dispatch does not wait for the
+        device; PyTorch's pinned-memory cache hands the block out again
+        only after that transfer has completed."""
+        device = self.device if device is None else device
+        if isinstance(rows, slice):
+            a, rows = a[rows], None
+        if device.type != "cuda":
             return torch.from_numpy(a.copy() if rows is None else a[rows])
         shape = a.shape if rows is None else (len(rows),) + a.shape[1:]
         buf = torch.empty(shape, dtype=torch.from_numpy(a[:0]).dtype,
@@ -473,7 +552,7 @@ class TrackingService:
             np.copyto(buf.numpy(), a)
         else:
             np.take(a, rows, axis=0, out=buf.numpy())
-        return buf.to(self.device, non_blocking=True)
+        return buf.to(device, non_blocking=True)
 
     def _record_tick(self, t0: float, batch: ServedBatch) -> None:
         # wall time of the whole tick (assemble + step + fetch; for
@@ -516,18 +595,32 @@ class TrackingService:
         return type(template)(*out)
 
     def _init_states(self):
-        """A fresh carry state over every slot on the service's device:
-        the template that ``utils/checkpoint.py::load_state`` reads a
-        checkpoint into."""
-        return self._init_fn(self.n_streams)
+        """A fresh carry state over every slot on the service's device
+        (``devices[0]`` when sharded): the template that
+        ``utils/checkpoint.py::load_state`` reads a checkpoint into."""
+        return state_to(self._init_fn(self.n_streams), self.device)
+
+    def _init_shard_states(self):
+        for sh in self._shards:
+            sh.states = state_to(
+                self._init_fn(sh.rows.stop - sh.rows.start), sh.device)
+
+    def _set_states(self, states):
+        """Install a state over every slot (owned by the service) into
+        the shards."""
+        if len(self._shards) == 1:
+            self._shards[0].states = states
+            return
+        for sh, part in zip(self._shards, shard_state(states, self.devices)):
+            sh.states = part
 
     @property
     def states(self):
         """A copy of the carry state (a tracker state over n_streams
         slots), or None before the first step."""
-        if self._states is None:
+        if self._shards[0].states is None:
             return None
-        return type(self._states)(*(t.clone() for t in self._states))
+        return gather_state([sh.states for sh in self._shards], self.device)
 
     def restore(self, states) -> None:
         """Install a carry state (failover / migration): a previous
@@ -539,7 +632,7 @@ class TrackingService:
         stream attached before the restore continues it; a slot attached
         after it starts fresh. (The JAX service leaves the flags set, and
         its failover test clears them by hand.)"""
-        self._states = self._conform(self._init_states(), states, "state")
+        self._set_states(self._conform(self._init_states(), states, "state"))
         with self._lock:
             self._reset[:] = False
 
@@ -552,11 +645,11 @@ class TrackingService:
         Continuation after import is bit-exact.
         """
         self._check(handle)
-        if self._states is None:
-            self._states = self._init_states()
-        slot = handle.slot
-        return type(self._states)(*(t[slot].to("cpu", copy=True).numpy()
-                                    for t in self._states))
+        if self._shards[0].states is None:
+            self._init_shard_states()
+        sh, slot = self._shard_of(handle.slot)
+        return type(sh.states)(*(t[slot].to("cpu", copy=True).numpy()
+                                 for t in sh.states))
 
     def import_stream(self, handle: StreamHandle, snapshot) -> None:
         """Install an :meth:`export_stream` snapshot into this slot.
@@ -571,14 +664,20 @@ class TrackingService:
         one = self._init_fn(1)
         snap = self._conform(type(one)(*(t[0] for t in one)), snapshot,
                              "stream snapshot")
-        if self._states is None:
-            self._states = self._init_states()
-        idx = torch.tensor([handle.slot], device=self.device)
-        self._states = type(self._states)(*(
-            full.index_put((idx,), s.unsqueeze(0))
-            for full, s in zip(self._states, snap)))
+        if self._shards[0].states is None:
+            self._init_shard_states()
+        sh, slot = self._shard_of(handle.slot)
+        idx = torch.tensor([slot], device=sh.device)
+        sh.states = type(sh.states)(*(
+            full.index_put((idx,), s.to(sh.device).unsqueeze(0))
+            for full, s in zip(sh.states, snap)))
         with self._lock:
             self._reset[handle.slot] = False
+
+    def _shard_of(self, slot: int):
+        """The shard that holds ``slot``, and the slot's row there."""
+        per = self._shards[0].rows.stop
+        return self._shards[slot // per], slot % per
 
     def stats(self) -> dict:
         """Mux counters + tick-latency/occupancy gauges.

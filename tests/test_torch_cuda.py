@@ -733,3 +733,188 @@ def test_appearance_tracker_eval_cli_on_the_card_writes_golden_long(
     assert len(golden) == 2
     for gf in golden:
         assert (tmp_path / gf.name).read_text() == gf.read_text(), gf.name
+
+
+def shard_devices(cuda, spread):
+    """Two shards on one card, or one shard on each visible card."""
+    if spread == "one_card":
+        return [cuda, cuda]
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more visible CUDA devices")
+    return [torch.device("cuda", i) for i in range(n)]
+
+
+@pytest.mark.parametrize("spread", ["one_card", "every_card"])
+def test_sharded_runner_on_the_card_equals_one_device(cuda, spread):
+    """ByteTrack through the auction kernel sharded over devices (two
+    launches a shard a frame) emits the one-device run bit for bit, from
+    inputs on the host and from inputs on the card; the outputs are
+    gathered on devices[0]; the collectives over the shards equal the
+    plain reductions."""
+    from motcpp_tpu_torch.parallel import (
+        Mesh,
+        emission_stats,
+        per_stream_emissions,
+        shard_over_streams,
+    )
+
+    devices = shard_devices(cuda, spread)
+    n, T = len(devices), 10
+    S = 32 * n
+    dets, masks = synth_stream_dets(np.random.default_rng(0), T, S, 32)
+    init, step = make_bytetrack(ByteTrackConfig(
+        max_tracks=64, max_dets=32, lap_impl="auction_pallas"), device=cuda)
+    want = MultiStreamRunner(init, step, S, device=cuda).run(dets, masks)
+    for inputs in ((dets, masks), (torch.from_numpy(dets).to(cuda),
+                                   torch.from_numpy(masks).to(cuda))):
+        runner = MultiStreamRunner(init, step, S, devices=devices)
+        before = auction_cuda.LAUNCHES
+        got = runner.run(*inputs)
+        assert auction_cuda.LAUNCHES - before == 2 * n * T
+        assert got[0].device == Mesh(devices)[0]
+        assert torch.equal(got[1], want[1]) and int(want[1].sum()) > 0
+        assert torch.equal(got[0][got[1]], want[0][want[1]])
+    mesh = Mesh(devices)
+    chunks = shard_over_streams(mesh, got[1])
+    assert [c.device for c in chunks] == list(mesh)
+    om = want[1]
+    assert emission_stats(chunks, mesh) == {
+        "total_emissions": int(om.sum()), "frames_processed": T * S,
+        "active_streams": int(om.any(2).any(0).sum()),
+        "peak_tracks_per_frame": int(om.sum(2).max())}
+    assert torch.equal(per_stream_emissions(chunks, mesh).cpu(),
+                       om.sum((0, 2), dtype=torch.int32).cpu())
+
+
+def live_setup(cuda, S, T, k=8, N=16, hw=(64, 32), D=512):
+    from motcpp_tpu_torch.appearance.osnet import init_params, osnet_x0_25
+    from motcpp_tpu_torch.appearance.reid import make_embed_fn
+    from motcpp_tpu_torch.models.botsort import BotSortConfig, make_botsort
+
+    dets, masks = synth_stream_dets(np.random.default_rng(0), T, S, N,
+                                    n_obj=14)
+    crops = np.random.default_rng(1).integers(
+        0, 256, (T, S, N) + hw + (3,), dtype=np.uint8)
+    dets, masks, crops, _ = pack_valid_rows(dets, masks, crops)
+    embed = make_embed_fn(init_params(osnet_x0_25(feature_dim=D), seed=0),
+                          compute_dtype="bfloat16", fused=True, device=cuda)
+    init, step = make_botsort(BotSortConfig(
+        with_reid=True, emb_dim=D, max_tracks=64, max_dets=N,
+        lap_impl="auction_pallas"), device=cuda)
+    return dets, masks, crops, embed, init, step
+
+
+@pytest.mark.parametrize("spread", ["one_card", "every_card"])
+def test_sharded_live_runner_and_service_on_the_card(cuda, spread):
+    """Live BoT-SORT at cadence 8 sharded over devices: the runner and
+    the service with compacted crops (6 OSBlock and 2 auction launches a
+    shard a tick) emit the one-device runner's rows bit for bit, and a
+    sharded tick's dispatch neither waits for a device nor reads a value
+    back (CUDA sync debug mode "error"), also with two ticks in flight."""
+    from motcpp_tpu_torch.appearance import osblock_cuda
+    from motcpp_tpu_torch.serving import TrackingService
+
+    devices = shard_devices(cuda, spread)
+    n, T, k = len(devices), 10, 8
+    S = 16 * n
+    dets, masks, crops, embed, init, step = live_setup(cuda, S, T, k)
+    want_o, want_m = MultiStreamRunner(
+        init, step, S, device=cuda, embed_fn=embed, emb_cadence=k).run(
+        dets, masks, embs=crops)
+    runner = MultiStreamRunner(init, step, S, devices=devices,
+                               embed_fn=embed, emb_cadence=k)
+    before = (osblock_cuda.LAUNCHES, auction_cuda.LAUNCHES)
+    got_o, got_m = runner.run(dets, masks, embs=crops)
+    assert (osblock_cuda.LAUNCHES - before[0],
+            auction_cuda.LAUNCHES - before[1]) == (6 * n * T, 2 * n * T)
+    assert torch.equal(got_m, want_m) and int(want_m.sum()) > 0
+    assert torch.equal(got_o[got_m], want_o[want_m])
+    for pipelined in (False, True):
+        svc = TrackingService(init, step, S, max_dets=16, emb_dim=512,
+                              devices=devices, crop_hw=(64, 32),
+                              embed_fn=embed, emb_cadence=k)
+        assert svc._cad_compact
+        before = (osblock_cuda.LAUNCHES, auction_cuda.LAUNCHES)
+        outs, out_masks = serve(svc, dets, masks, crops, pipelined)
+        assert (osblock_cuda.LAUNCHES - before[0],
+                auction_cuda.LAUNCHES - before[1]) == (6 * n * T, 2 * n * T)
+        np.testing.assert_array_equal(out_masks, want_m.cpu().numpy())
+        np.testing.assert_array_equal(outs[out_masks],
+                                      want_o.cpu().numpy()[out_masks])
+
+
+@pytest.mark.parametrize("spread", ["one_card", "every_card"])
+def test_sharded_service_on_the_card_equals_the_runner(cuda, spread):
+    """ByteTrack's service sharded over devices gives the one-device
+    runner's emissions bit for bit, with and without two ticks in
+    flight, and its dispatch does not synchronise; a stream exported from
+    it continues in a one-device service."""
+    from motcpp_tpu_torch.serving import TrackingService
+
+    devices = shard_devices(cuda, spread)
+    n, T, N = len(devices), 10, 32
+    S = 16 * n
+    dets, masks, _ = pack_valid_rows(*synth_stream_dets(
+        np.random.default_rng(0), T, S, N))
+    init, step = make_bytetrack(ByteTrackConfig(
+        max_tracks=64, max_dets=N, lap_impl="auction_pallas"), device=cuda)
+    want_o, want_m = MultiStreamRunner(init, step, S, device=cuda).run(
+        dets, masks)
+    for pipelined in (False, True):
+        svc = TrackingService(init, step, S, max_dets=N, devices=devices)
+        before = auction_cuda.LAUNCHES
+        outs, out_masks = serve(svc, dets, masks, pipelined=pipelined)
+        assert auction_cuda.LAUNCHES - before == 2 * n * T
+        np.testing.assert_array_equal(out_masks, want_m.cpu().numpy())
+        np.testing.assert_array_equal(outs[out_masks],
+                                      want_o.cpu().numpy()[out_masks])
+    assert all(t.device == svc.device for t in svc.states)
+
+
+def test_two_process_dryrun_on_the_card(cuda):
+    """dryrun_multihost: two processes, each with 4 shards on the card
+    through the auction kernel, gather per-stream counts over gloo equal
+    to one process's run of the whole scene."""
+    from motcpp_tpu_torch.parallel.multihost import dryrun_multihost
+
+    report = dryrun_multihost(2, device="cuda")
+    assert report["ok"] and report["device"].startswith("cuda")
+    assert report["emissions"] == sum(report["counts"]) > 0
+
+
+@pytest.mark.parametrize("shape", [(64, 256, 128), (4096, 64, 32)],
+                         ids=["eight_warps_large_tile", "one_warp"])
+def test_auction_kernel_on_every_card(cuda, shape):
+    """The auction kernel equals its plain version on every visible card
+    (a sharded runner launches it on each), in both layouts, the large
+    tile taking more than 48 KB of shared memory."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more visible CUDA devices")
+    args = problems(0, *shape)
+    want = auction.solve_lap_auction(*args)
+    for i in range(torch.cuda.device_count()):
+        got = auction_cuda.solve(*(a.to(torch.device("cuda", i))
+                                   for a in args))
+        assert got[0].device.index == i
+        assert torch.equal(got[0].cpu(), want[0])
+        assert torch.equal(got[1].cpu(), want[1])
+
+
+def test_osblock_kernel_on_every_card(cuda):
+    """The OSBlock kernel equals its plain version on every visible card
+    (osnet_x1_0's conv2_0 at 64x32, more than 48 KB of shared memory)."""
+    from motcpp_tpu_torch.appearance import osblock
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more visible CUDA devices")
+    for i in range(torch.cuda.device_count()):
+        dev = torch.device("cuda", i)
+        folded, packed = osblock_setup(dev, torch.float32, arch="x1_0")
+        w = packed["conv2_0"]
+        x = torch.relu(torch.randn((4, 64, 32, w.cin), generator=torch
+                                   .Generator().manual_seed(i))).to(dev)
+        got = osblock.osblock_fused(w, x)
+        want = osblock.osblock_reference(folded, "conv2_0", x, w.cout)
+        assert got.device == dev
+        assert float((got - want).abs().max() / want.abs().max()) <= 1e-4

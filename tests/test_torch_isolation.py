@@ -219,3 +219,35 @@ def test_utility_entry_points_default_to_cuda_and_raise_without_it(
     with trace(tmp_path / "t", device="cpu"):
         torch.ones(2).sum()
     assert list((tmp_path / "t").glob("*.json"))
+
+
+def test_sharded_entry_points_raise_without_cuda(no_cuda):
+    """A runner, a service or a mesh given a CUDA device among
+    ``devices`` raises where there is none, before anything runs (never
+    a quiet move to the CPU); so does the two-process dryrun."""
+    from motcpp_tpu_torch.models.bytetrack import (
+        ByteTrackConfig,
+        make_bytetrack,
+    )
+    from motcpp_tpu_torch.parallel import Mesh
+    from motcpp_tpu_torch.parallel.multihost import dryrun_multihost, worker
+    from motcpp_tpu_torch.parallel.streams import MultiStreamRunner
+    from motcpp_tpu_torch.serving import TrackingService
+
+    init, step = make_bytetrack(ByteTrackConfig(), device="cpu")
+    for devices in (["cuda"], ["cuda:0", "cuda:0"], ["cpu", "cuda"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            Mesh(devices)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            MultiStreamRunner(init, step, 2, devices=devices)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            MultiStreamRunner(init, step, 2, device="cpu", devices=devices)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            TrackingService(init, step, 2, devices=devices)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            TrackingService.from_tracker("bytetrack", 2, devices=devices)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        worker(0, 1, 0, "cuda")
+    for call in (dryrun_multihost, lambda: dryrun_multihost(2, "cuda")):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()  # the default is the card, and no worker starts

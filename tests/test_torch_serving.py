@@ -385,10 +385,10 @@ def test_service_restore_from_live_pytree_does_not_alias():
         a.step()
     b = port_service()
     hb = b.attach()
-    b.restore(a._states)
+    b.restore(a._shards[0].states)
     b._reset[:] = False
     assert all(x.data_ptr() != y.data_ptr()
-               for x, y in zip(a._states, b._states))
+               for x, y in zip(a._shards[0].states, b._shards[0].states))
     for f in frames[4:]:
         a.submit(ha, f)
         b.submit(hb, f)
@@ -408,7 +408,7 @@ def test_service_states_property_survives_step():
     snap = svc.states
     kept = type(snap)(*(t.clone() for t in snap))
     assert all(x.data_ptr() != y.data_ptr()
-               for x, y in zip(snap, svc._states))
+               for x, y in zip(snap, svc._shards[0].states))
     svc.submit(h, frames[3])
     svc.step()
     assert_state_equal(snap, kept)
@@ -619,7 +619,7 @@ def test_service_priority_budget_matches_uncapped(embeds):
     ticks = crop_ticks(13, 6)
     pri = live_service(embed, crop_budget=S * N, emb_priority=True)
     got = drive(pri, 1, ticks)
-    assert pri._prev_dm is not None  # novelty baseline carried
+    assert pri._shards[0].prev_dm is not None  # novelty baseline carried
     assert_same_drive(got, drive(live_service(embed), 1, ticks), box_atol=0)
     assert_same_drive(got, drive(jax_live_service(
         jembed, crop_budget=S * N, emb_priority=True), 1, ticks),
@@ -636,7 +636,7 @@ def test_priority_mode_holds_copies_of_the_mux_buffers(embeds):
     (d0, kw0), (d1, kw1) = (t[0] for t in crop_ticks(3, 2))
     svc.submit(h, d0, **kw0)
     svc.step()
-    held = svc._prev_dm
+    held = svc._shards[0].prev_dm
     assert not any(np.shares_memory(t.numpy(), buf) for t in held
                    for buf in (svc.mux._dets, svc.mux._mask))
     want = [t.clone() for t in held]
@@ -645,7 +645,8 @@ def test_priority_mode_holds_copies_of_the_mux_buffers(embeds):
     svc.step()  # assembles tick 1 into the same buffers
     np.testing.assert_array_equal(svc.mux._dets[h.slot, :3], d1)
     assert all(torch.equal(x, y) for x, y in zip(held, want))
-    np.testing.assert_array_equal(svc._prev_dm[0][h.slot, :3].numpy(), d1)
+    np.testing.assert_array_equal(
+        svc._shards[0].prev_dm[0][h.slot, :3].numpy(), d1)
 
 
 # ---------------------------------------------------------------------------

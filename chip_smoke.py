@@ -9,9 +9,10 @@ motion from frames, the serving runtime (TrackingService over the
 native stream mux) at the ByteTrack flagship and at live ReID, the
 utilities (configs read without PyYAML, the eval CLI's goldens and the
 MOT metrics, checkpoint failover, profiling, the ReID warm-up, the native
-IO), and the streams sharded over devices (the runner, the service, the
-emission collectives and a two-process dryrun), and checks what they
-emit.
+IO), the streams sharded over devices (the runner, the service, the
+emission collectives and a two-process dryrun), and int8 and dense-lite
+ReID (live BoT-SORT through the int8 embed and the auction kernel), and
+checks what they emit.
 
     python3 chip_smoke.py [--baseline OTHER_AUCTION_CU]
 
@@ -24,8 +25,8 @@ the previous kernel's times on these inputs as PERF.md records them.
 Needs one CUDA device (written for an H100, sm_90a) and nvcc. The main
 paths run and are timed with PyTorch's defaults (cuDNN may use TF32 for
 float32 convolutions, matrix products do not); TF32 is off only around
-the float32 checks of phases 6 and 8 and the plain versions' timings,
-so those compare float32 arithmetic. Phases:
+the float32 checks of phases 6, 8 and 20 (e) and the plain versions'
+timings, so those compare float32 arithmetic. Phases:
 
   1. build the auction kernel (and, in parallel, the OSBlock kernel, the
      native mux and the native IO library); print its registers and
@@ -165,13 +166,29 @@ so those compare float32 arithmetic. Phases:
      fails over sharded -> .npz -> one device and one device -> torch
      file -> sharded, each continuation equal to the uninterrupted run
      bit for bit; (f) motcpp_tpu_torch.parallel.multihost's two-process
-     dryrun over gloo, each process's four shards on the card.
+     dryrun over gloo, each process's four shards on the card;
+ 20. int8 and dense-lite ReID at phase 7's widths (osnet_x1_0, D=512,
+     256x128 crops, S=128, N=16): (a) quantize_osnet on the host, timed,
+     and the int8 and float weight bytes make_embed_fn_int8 puts on the
+     card; (b) the int8 embed of 256 and 2048 crops through torch._int_mm
+     against the plain int8 product (float64 sums) bit for bit, its device
+     ms beside the bf16 fused and folded embeds, a profile of one 256-crop
+     embed split among the int8 products, quantize, dequantize and the
+     depthwise convs, and the per-crop cosine to the bf16 fused
+     embeddings; (c) live BoT-SORT at cadence 8 with make_embed_fn_int8
+     through MultiStreamRunner beside phase 7's bf16 row (no OSBlock
+     launch; the auction kernel against its plain version on the path's
+     own inputs; the share of emissions equal to phase 7's); (d) the same
+     through TrackingService on phase 17's frames, equal to the runner bit
+     for bit; (e) compose_lite_dense + _forward_folded_dense against
+     forward_folded_f32 on the card with TF32 off (relative error
+     <= 1e-4), each forward's ms.
 
 Any failed check exits nonzero before the result is printed. The last
 line is ``{"ok": true, "device": {...}}``; the line before it is the
 card's name and power limit, and the one before that lists the kernels
 with their times and bounds (those of phases 3 and 7) and their
-launches summed over the main paths of phases 3, 7 and 9-19, each
+launches summed over the main paths of phases 3, 7 and 9-20, each
 counted from zero; before those, the script's wall time.
 """
 
@@ -221,6 +238,11 @@ LIVE_S, LIVE_N, LIVE_K, LIVE_D, LIVE_OBJ, LIVE_T = 128, 16, 64, 512, 14, 4
 CROP_HW = (256, 128)
 CADENCE = 8
 BLOCK_CHECK_B = 64
+# phase 20's card-vs-host int8 check: crops, and the per-crop cosine bar
+# (sums in another order may flip a quantized activation by one step; the
+# host's bf16 forward is held against the JAX package's, at 0.99999, by
+# tests/test_torch_quant.py)
+HOST_INT8_CROPS, HOST_INT8_COS = 8, 0.999
 EQUAL_T = 12  # frames of the kernel-path-vs-plain-path live runs
 # the deployed live-ReID points of bench.py DEPLOYED: an embedding cadence
 # or a priority budget. bench_livereid keeps N = LIVE_N (it raises N only
@@ -611,6 +633,10 @@ def run_smoke(baseline=None):
     #      collectives and the two-process dryrun ---------------------------
     sharded = sharded_phase(19, smi, byte, live, paths["HybridSORT live"],
                             served["live"], scene)
+
+    # ---- 20. int8 and dense-lite ReID: live BoT-SORT at cadence 8 through
+    #      the int8 embed and the auction kernel -----------------------------
+    quantized = int8_phase(20, smi, live, served["live"], scene)
     del scene
 
     motion = [p for name, p in paths.items() if not name.endswith("live")]
@@ -623,8 +649,10 @@ def run_smoke(baseline=None):
         "launches": (sum(p["auction_launches"] for p in paths.values())
                      + served["auction_launches"]
                      + utils["auction_launches"]
-                     + sharded["auction_launches"]),
-        "max_abs_err": max([max_err, sharded["auction_err"]]
+                     + sharded["auction_launches"]
+                     + quantized["auction_launches"]),
+        "max_abs_err": max([max_err, sharded["auction_err"],
+                            quantized["auction_err"]]
                            + [p["auction_err"] for p in motion]
                            + [p["auction"]["auction_err"] for p in live_paths
                               if "auction" in p]),
@@ -641,7 +669,8 @@ def run_smoke(baseline=None):
         "launches": (sum(p["osblock_launches"] for p in live_paths)
                      + served["osblock_launches"]
                      + utils["osblock_launches"]
-                     + sharded["osblock_launches"]),
+                     + sharded["osblock_launches"]
+                     + quantized["osblock_launches"]),
         "max_abs_err": max([sharded["osblock_err"]]
                            + [p["osblock"]["max_err"] for p in live_paths]),
         "ms": live["osblock"]["ms"],
@@ -662,6 +691,10 @@ def run_smoke(baseline=None):
     print(f"launches on phase 19's sharded paths: auction "
           f"{sharded['auction_launches']}, OSBlock "
           f"{sharded['osblock_launches']}")
+    print(f"launches on phase 20's int8 paths: auction "
+          f"{quantized['auction_launches']}, OSBlock "
+          f"{quantized['osblock_launches']}, int8 products (torch._int_mm, "
+          f"not a kernel of this port) {quantized['int8_launches']}")
     return kernels, smi
 
 
@@ -1762,7 +1795,7 @@ def serving_phase(phase, card, mux_build, runner_ms, live_runner_ms, model):
     print(f"phase {phase} serving BoT-SORT live profile of one tick: "
           f"{profiled}")
     live = {"submit_to": submit_live_to, "ticks": ticks, "batches": batches,
-            "embed": embed}
+            "embed": embed, "frames": (dets, masks, order, crops_host)}
     del want, parts, crops0
 
     # ---- (3) gappy schedule and pipelined dispatch on 8 streams ------------
@@ -2487,6 +2520,357 @@ def sharded_phase(phase, card, byte, live, hybrid, served_live, scene):
             "osblock_launches": launches[osblock_cuda],
             "auction_err": stats["auction_err"],
             "osblock_err": max(b["max_err"] for b in blocks)}
+
+
+def profile_split(fn, patches):
+    """torch.profiler over one call of ``fn()``, after one untimed call,
+    with each (module, attribute, label) of ``patches`` wrapped in a
+    record_function range: the wall under the profiler, the kernels'
+    device time and count, and each label's share, the kernels that
+    start inside one of its ranges' device spans."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    saved = []
+    for mod, attr, label in patches:
+        f = getattr(mod, attr)
+
+        def wrapped(*a, f=f, label=label, **kw):
+            with record_function(label):
+                return f(*a, **kw)
+
+        saved.append((mod, attr, f))
+        setattr(mod, attr, wrapped)
+    try:
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    finally:
+        for mod, attr, f in saved:
+            setattr(mod, attr, f)
+    labels = [label for _, _, label in patches]
+    on_device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kernels = [e for e in on_device if e.name not in labels]
+    device_us = sum(e.time_range.elapsed_us() for e in kernels)
+    if not device_us:
+        return "profiler recorded no device time: split not measured"
+    parts = [f"wall {wall_us / 1e3:.3f} ms under the profiler, kernels "
+             f"{device_us / 1e3:.3f} ms ({len(kernels)})"]
+    inside = 0.0
+    for label in labels:
+        spans = [e.time_range for e in on_device if e.name == label]
+        us = sum(e.time_range.elapsed_us() for e in kernels
+                 if any(sp.start <= e.time_range.start < sp.end
+                        for sp in spans))
+        inside += us
+        parts.append(f"{label} {us / 1e3:.3f} ms "
+                     f"({100 * us / device_us:.1f}%)"
+                     + ("" if spans else " (no device span)"))
+    rest = device_us - inside
+    parts.append(f"the rest (preprocessing, gates, pools, residuals, "
+                 f"norm) {rest / 1e3:.3f} ms ({100 * rest / device_us:.1f}%)")
+    return "; ".join(parts)
+
+
+def fixture_cosines():
+    """Per-crop cosine of the int8 embed (bf16 and float32 activations)
+    to the float32 embed (TF32 off) at the trained osnet_x0_25 of
+    tests/fixtures, on the crops of MOT17-02's first frame's detections
+    (256x128, uint8 BGR); "not measured" where no image reader (cv2 or
+    PIL) is installed."""
+    from motcpp_tpu_torch.appearance import quant
+    from motcpp_tpu_torch.appearance.osnet import load_weights_auto
+    from motcpp_tpu_torch.appearance.reid import extract_crops, make_embed_fn
+    from motcpp_tpu_torch.data import MOT17Dataset
+    from motcpp_tpu_torch.data.mot17 import imread
+
+    seq = MOT_MINI / "MOT17-02-FRCNN"
+    img = imread(seq / "img1" / "000001.jpg")
+    if img is None:
+        return ("int8 cosine at the trained fixture on MOT17-02 crops: not "
+                "measured (no cv2 or PIL to read the frame)")
+    boxes = MOT17Dataset.load_detections(seq / "det" / "det.txt")[1][:, :4]
+    # extract_crops' sampling, unnormalized: RGB in [0, 255], then BGR uint8
+    crops = extract_crops(torch.as_tensor(img, device="cuda"),
+                          torch.as_tensor(boxes, device="cuda"), CROP_HW,
+                          ((0.0, 0.0, 0.0), (1 / 255,) * 3))
+    crops = crops.round().clamp(0, 255).flip(-1).to(torch.uint8)
+    model = load_weights_auto(TESTS / "fixtures" / "osnet_x0_25_converted.npz")
+    with exact_float32():
+        ref = make_embed_fn(model, device="cuda")(crops)
+        cos = {act: crop_cosine(quant.make_embed_fn_int8(
+            model, act_dtype=act, device="cuda")(crops), ref)
+            for act in ("bfloat16", "float32")}
+    return (f"int8 cosine to float32 at the trained fixture "
+            f"(osnet_x0_25) on MOT17-02 frame 1's {crops.shape[0]} crops: "
+            + ", ".join(f"{act} activations min {float(c.min()):.4f} median "
+                        f"{float(c.median()):.4f}" for act, c in cos.items()))
+
+
+def int8_phase(phase, card, live, served_live, scene):
+    """Phase ``phase``: int8 and dense-lite ReID at bench.py::
+    bench_livereid's widths (osnet_x1_0, D=512, the seeded weights of
+    phase 7, 256x128 uint8 crops, phase 7's scene): (a) quantize_osnet on
+    the host, timed, and the int8 and float weight bytes that
+    make_embed_fn_int8 puts on the card; (b) the int8 embed of 256 crops
+    (a cadence-8 frame) and 2048 (every frame) through torch._int_mm
+    against the same embed through the plain int8 product (bit for bit),
+    its device ms beside the bf16 fused and bf16 folded embeds of the
+    same crops, the card's embed of HOST_INT8_CROPS crops against the
+    host's int8 forward (per-crop cosine at least HOST_INT8_COS), a
+    profile of one 256-crop embed split among the int8 products,
+    quantize, dequantize and the depthwise convs, and the
+    per-crop cosine to the bf16 fused embeddings; (c) live BoT-SORT at
+    cadence 8 with the int8 embed through MultiStreamRunner (one warm-up
+    and REPEATS timed runs, two auction launches a frame, no OSBlock
+    launch), the auction kernel against its plain version on the path's
+    own inputs, and the share of emissions equal to phase 7's bf16 path;
+    (d) the same through TrackingService (phase 17's packed frames and
+    crops through the mux), equal to the runner on the same frames bit
+    for bit; (e) dense-lite: compose_lite_dense + _forward_folded_dense
+    against forward_folded_f32 on 256 crops with TF32 off, errors and
+    each forward's ms. Returns the launches of (c) and (d)."""
+    from torch.profiler import record_function
+
+    from motcpp_tpu_torch.appearance import osblock_cuda, quant
+    from motcpp_tpu_torch.appearance.reid import make_embed_fn
+    from motcpp_tpu_torch.ops import auction_cuda, int8
+    from motcpp_tpu_torch.parallel.streams import MultiStreamRunner
+    from motcpp_tpu_torch.serving import TrackingService
+
+    t_phase = time.perf_counter()
+    model = live["model"]
+    # ---- (a) quantize on the host; the bytes on the card ------------------
+    t0 = time.perf_counter()
+    qvars = quant.quantize_osnet(model)
+    quantize_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    embed = quant.make_embed_fn_int8(model, device="cuda")
+    make_s = time.perf_counter() - t0
+    on_card = quant._on_device(qvars, torch.device("cuda"))
+    tensors = ([t for leaf in on_card["q"].values() for t in leaf.values()
+                if isinstance(t, torch.Tensor)]
+               + [t for leaf in on_card["folded"].values()
+                  for t in leaf.values() if t.device.type == "cuda"]
+               + list(on_card["act"].values()))
+    int8_bytes = sum(t.numel() for t in tensors if t.dtype == torch.int8)
+    float_bytes = sum(t.numel() * t.element_size() for t in tensors
+                      if t.dtype != torch.int8)
+    model_bytes = sum(p.numel() * 4 for p in model.parameters())
+    del on_card, tensors
+    print(f"phase {phase} (a) quantize_osnet(osnet_x1_0) on the host: "
+          f"{quantize_s:.2f} s ({len(qvars['act'])} input scales from "
+          f"{quant.CALIB_SHAPE} calibration crops); make_embed_fn_int8 "
+          f"(quantize and copy) {make_s:.2f} s; on the card: int8 weights "
+          f"{int8_bytes / 1e6:.3f} MB, float (scales, biases, depthwise, "
+          f"gates) {float_bytes / 1e6:.3f} MB, against the float32 model's "
+          f"{model_bytes / 1e6:.3f} MB; card: {card}")
+
+    # ---- (b) the int8 embed against its plain version; times; profile -----
+    dets_all, masks_all, crops_all = scene
+    flat = crops_all[0].reshape(-1, *CROP_HW, 3)
+    per_cadence = -(-LIVE_S // CADENCE) * LIVE_N
+    fused = make_embed_fn(model, compute_dtype="bfloat16", fused=True,
+                          device="cuda")
+    folded = make_embed_fn(model, compute_dtype="bfloat16", folded=True,
+                           device="cuda")
+    launch = int8.int8_matmul
+    per_embed = {}
+    for B in (per_cadence, flat.shape[0]):
+        x = flat[:B]
+        before = int8.LAUNCHES
+        got = embed(x)
+        torch.cuda.synchronize()
+        per_embed[B] = int8.LAUNCHES - before
+        check(per_embed[B] > 0, f"the int8 embed of {B} crops launched no "
+              "int8 product")
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        int8.int8_matmul = int8.int8_matmul_reference
+        try:  # one call: the plain products take the device seconds
+            start.record()
+            want = embed(x)
+            end.record()
+            torch.cuda.synchronize()
+        finally:
+            int8.int8_matmul = launch
+        plain_ms = start.elapsed_time(end)
+        check(torch.equal(got, want), f"int8 embed of {B} crops: torch._int_mm"
+              f" and the plain int8 product differ by "
+              f"{float((got - want).abs().max()):.3g}")
+        check(bool(torch.isfinite(got).all())
+              and bool(((got.norm(dim=1) - 1).abs() < 1e-3).all()),
+              f"int8 embed of {B} crops: not finite unit-norm rows")
+        reps = 5 if B <= per_cadence else 1
+        ms = {label: cuda_ms(lambda fn=fn: fn(x), reps) for label, fn in (
+            ("int8", embed), ("bf16 fused", fused), ("bf16 folded", folded))}
+        cos = crop_cosine(got, fused(x))
+        print(f"phase {phase} (b) int8 embed of {B} crops: torch._int_mm = "
+              f"plain int8 product bit for bit ({per_embed[B]} products); "
+              f"device ms int8 {ms['int8']:.3f}, bf16 fused "
+              f"{ms['bf16 fused']:.3f}, bf16 folded {ms['bf16 folded']:.3f}, "
+              f"int8 through the plain product {plain_ms:.3f} (one call); "
+              f"per-crop "
+              f"cosine to the bf16 fused embeddings min "
+              f"{float(cos.min()):.4f}, median {float(cos.median()):.4f}; "
+              f"card: {card}")
+    # the card's embed against the port's int8 forward on the host, both
+    # in bf16 (tests/test_torch_quant.py holds the host's against the JAX
+    # package's bf16 forward): sums in another order may flip a quantized
+    # activation by one step, hence a cosine bar and not equality
+    x = flat[:HOST_INT8_CROPS]
+    t0 = time.perf_counter()
+    host = quant.make_embed_fn_int8(model, act_dtype="bfloat16",
+                                    device="cpu")(x.cpu())
+    host_s = time.perf_counter() - t0
+    got = embed(x).cpu()
+    cos = crop_cosine(got, host)
+    check(bool((cos >= HOST_INT8_COS).all()),
+          f"int8 embed on the card vs the host's bf16 int8 forward: per-crop "
+          f"cosine min {float(cos.min()):.6f} < {HOST_INT8_COS}")
+    print(f"phase {phase} (b) int8 embed of {HOST_INT8_CROPS} crops on the "
+          f"card vs the host's int8 forward (bf16 activations both, "
+          f"{host_s:.1f} s on the host): per-crop cosine min "
+          f"{float(cos.min()):.6f} (bar {HOST_INT8_COS}), max abs err "
+          f"{float((got - host).abs().max()):.3g}")
+    print(f"phase {phase} (b) {fixture_cosines()}")
+    x = flat[:per_cadence]
+    split = profile_split(lambda: embed(x), [
+        (int8, "int8_matmul", "int8 products"),
+        (quant, "_quantize_act", "quantize"),
+        (quant, "_dequantize", "dequantize"),
+        (quant, "_conv", "depthwise")])
+    print(f"phase {phase} (b) profile of one int8 embed of {per_cadence} "
+          f"crops: {split}")
+    del fused, folded, got, want
+
+    # ---- (c) live BoT-SORT at cadence 8 through the runner ----------------
+    last = []
+
+    def embed_fn(crops):
+        with record_function("osnet"):
+            e = embed(crops)
+        last[:] = [e]
+        return e
+
+    init, step = live["make"]
+    dets, masks, crops = (dets_all[:LIVE_T], masks_all[:LIVE_T],
+                          crops_all[:LIVE_T])
+    counters = (osblock_cuda, auction_cuda, int8)
+    want = {osblock_cuda: 0, auction_cuda: 2 * LIVE_T,
+            int8: per_embed[per_cadence] * LIVE_T}
+    for m in counters:
+        m.LAUNCHES = 0
+    runner = MultiStreamRunner(init, step, LIVE_S, device="cuda",
+                               embed_fn=embed_fn, emb_cadence=CADENCE)
+    run_s, times, outs, out_masks = timed_runs(runner, dets, masks, crops,
+                                               counters, want)
+    launches = {m: m.LAUNCHES for m in counters}
+    emitted = check_live_outputs("BoT-SORT int8 live", last[0], outs,
+                                 out_masks)
+    bo, bm = live["outputs"]["cadence 8"]
+    same = out_masks & bm & (outs[..., 4] == bo[..., 4]) & (
+        (outs[..., :4] - bo[..., :4]).abs().amax(-1) <= 1e-3)
+    share = int(same.sum()) / max(int(out_masks.sum()), int(bm.sum()), 1)
+    frame_ms = run_s * 1e3 / LIVE_T
+    print(f"phase {phase} (c) live ReID int8 cadence {CADENCE}: S={LIVE_S} "
+          f"N={LIVE_N} K={LIVE_K} D={LIVE_D} osnet_x1_0 int8 (bf16 "
+          f"activations to the first gate, float32 after) "
+          f"{CROP_HW[0]}x{CROP_HW[1]} T={LIVE_T}: "
+          f"{frame_ms:.3f} ms per frame-batch (median of {REPEATS}, runs "
+          f"{[round(t * 1e3, 1) for t in times]} ms), "
+          f"{LIVE_S * LIVE_T / run_s / 30:.2f} streams at 30 FPS, "
+          f"{per_cadence * LIVE_T / run_s:.0f} crops/s ({per_cadence} per "
+          f"frame), {emitted} emissions in the last run; phase 7's bf16 "
+          f"fused row {live['frame_ms']['cadence 8']:.3f} ms; "
+          f"{100 * share:.2f}% of emissions equal phase 7's ({int(bm.sum())}"
+          f" there); launches per run: int8 products "
+          f"{want[int8]}, auction {want[auction_cuda]}, OSBlock 0; card: "
+          f"{card}")
+    runner = MultiStreamRunner(init, step, LIVE_S, device="cuda",
+                               embed_fn=embed, emb_cadence=CADENCE)
+    runner.run(dets[:2], masks[:2], embs=crops[:2])
+    auction_stats = auction_on_path(
+        phase, "BoT-SORT int8 live", ("stage 1", "stages 2+3"),
+        lambda: runner.run(dets[2:3], masks[2:3], embs=crops[2:3]), card)
+    del runner, last
+
+    # ---- (d) the same through TrackingService ------------------------------
+    ticks = served_live["ticks"]
+    fdets, fmasks, order, crops_host = served_live["frames"]
+    svc = TrackingService.from_tracker(
+        "botsort", LIVE_S, max_dets=LIVE_N, emb_dim=LIVE_D, device="cuda",
+        crop_hw=CROP_HW, embed_fn=embed, emb_cadence=CADENCE,
+        tracker_kw=dict(with_reid=True, max_tracks=LIVE_K,
+                        lap_impl="auction_pallas"))
+    check(svc._cad_compact, "the int8 service's cadence_compact is off")
+    hs = [svc.attach() for _ in range(LIVE_S)]
+    for m in counters:
+        m.LAUNCHES = 0
+    batches = []
+    for t in range(ticks):
+        served_live["submit_to"](svc, hs, t)
+        batches.append(svc.step())
+    check(osblock_cuda.LAUNCHES == 0 and auction_cuda.LAUNCHES == 2 * ticks
+          and int8.LAUNCHES == per_embed[per_cadence] * ticks,
+          f"int8 service: launches OSBlock {osblock_cuda.LAUNCHES}, auction "
+          f"{auction_cuda.LAUNCHES}, int8 {int8.LAUNCHES} over {ticks} ticks")
+    for m in counters:
+        launches[m] += m.LAUNCHES
+    del svc
+    crops0 = torch.from_numpy(crops_host).cuda()
+    runner = MultiStreamRunner(init, step, LIVE_S, device="cuda",
+                               embed_fn=embed, emb_cadence=CADENCE)
+    ar = torch.arange(LIVE_S, device="cuda")[:, None]
+    parts = []
+    for t in range(ticks):
+        crops_t = torch.roll(crops0, t, 0)[ar, torch.from_numpy(order[t])
+                                           .cuda()]
+        parts.append(runner.run(fdets[t:t + 1], fmasks[t:t + 1],
+                                embs=crops_t[None]))
+    served = [torch.cat([p[i] for p in parts]) for i in range(2)]
+    emitted, _ = check_served("BoT-SORT int8 serving", batches, *served,
+                              atol=0.0)
+    print(f"phase {phase} (d) TrackingService with the int8 embed, "
+          f"cadence {CADENCE}, {ticks} ticks of phase 17's frames and crops "
+          f"through the mux = the runner on the same frames bit for bit "
+          f"({emitted} emissions); launches a tick: int8 products "
+          f"{per_embed[per_cadence]}, auction 2, OSBlock 0; card: {card}")
+    del runner, parts, served, batches, crops0
+
+    # ---- (e) dense-lite against the folded forward, TF32 off --------------
+    from motcpp_tpu_torch.appearance.reid import IMAGENET_MEAN, IMAGENET_STD
+
+    with exact_float32():
+        tree = {n: {k: v.cuda() for k, v in leaf.items()}
+                for n, leaf in qvars["folded"].items()}
+        composed = quant.compose_lite_dense(tree)
+        mean = torch.tensor(IMAGENET_MEAN, device="cuda")
+        std = torch.tensor(IMAGENET_STD, device="cuda")
+        xf = (flat[:per_cadence].float().flip(-1) / 255.0 - mean) / std
+        dense = quant._forward_folded_dense(composed, xf)
+        ref = quant.forward_folded_f32(tree, xf)
+        err = float((dense - ref).abs().max())
+        rel = err / float(ref.abs().max())
+        check(bool(torch.isfinite(dense).all()) and rel <= 1e-4,
+              f"dense-lite vs folded float32: relative error {rel:.2e} > 1e-4")
+        dense_ms = cuda_ms(lambda: quant._forward_folded_dense(composed, xf),
+                           2)
+        folded_ms = cuda_ms(lambda: quant.forward_folded_f32(tree, xf), 2)
+    print(f"phase {phase} (e) dense-lite (compose_lite_dense, "
+          f"_forward_folded_dense) vs forward_folded_f32 on {per_cadence} "
+          f"crops, TF32 off: max abs err {err:.3g}, relative {rel:.3g}; "
+          f"dense-lite {dense_ms:.3f} ms, folded {folded_ms:.3f} ms; the "
+          f"phase took {time.perf_counter() - t_phase:.1f} s; card: {card}")
+    return {"auction_launches": launches[auction_cuda],
+            "osblock_launches": launches[osblock_cuda],
+            "int8_launches": launches[int8],
+            "auction_err": auction_stats["auction_err"]}
 
 
 def main(argv=None):

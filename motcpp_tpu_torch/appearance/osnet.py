@@ -389,17 +389,32 @@ def load_npz_variables(path) -> dict:
     return out
 
 
+def _read_torch_checkpoint(path) -> dict:
+    """The state_dict of a torchreid checkpoint (.pt/.pth): unwrapped from
+    ``{"state_dict": ...}`` and without DataParallel's ``module.``
+    prefix."""
+    sd = torch.load(str(path), map_location="cpu", weights_only=False)
+    if isinstance(sd, dict) and "state_dict" in sd:
+        sd = sd["state_dict"]
+    return {k.removeprefix("module."): v for k, v in sd.items()}
+
+
+def load_torch_weights(model: OSNet, path) -> OSNet:
+    """Load a torchreid OSNet checkpoint (.pt/.pth) into ``model`` (the
+    counterpart of ``motcpp_tpu/appearance/osnet.py::load_torch_weights``,
+    which loads into Flax variables): every tensor of the model must be
+    there with its shape and no other may be, or ValueError lists what
+    differs. Returns ``model``."""
+    return _load_checked(model, _read_torch_checkpoint(path))
+
+
 def load_weights_auto(path) -> OSNet:
     """An OSNet with weights from a torchreid checkpoint (.pt/.pth) or a
     ``.npz`` of converted Flax variables; the variant is inferred from
     the tensors, and every tensor is checked by name and shape."""
     p = str(path)
     if p.endswith((".pt", ".pth")):
-        sd = torch.load(p, map_location="cpu", weights_only=False)
-        if isinstance(sd, dict) and "state_dict" in sd:
-            sd = sd["state_dict"]
-        # DataParallel checkpoints carry a "module." prefix
-        sd = {k.removeprefix("module."): v for k, v in sd.items()}
+        sd = _read_torch_checkpoint(p)
     elif p.endswith(".npz"):
         sd = state_dict_from_flax(load_npz_variables(Path(p)))
     else:

@@ -1,4 +1,5 @@
-"""Runs a test function of the JAX package's suite against the port.
+"""Runs a test function of the JAX package's suite against the port,
+and gives the port's tests the JAX package's native parser.
 
 ``jax_cases(module, names)`` lists the cases of the named test functions
 of ``module`` (a ``tests/test_*.py`` module), one per combination of
@@ -7,11 +8,37 @@ the module replaced (``monkeypatch``) by the port's counterparts, and
 with modules of the JAX package that the function imports inside its
 body replaced in ``sys.modules`` by the port's, so the JAX package's own
 assertions hold the port.
+
+``jax_native_parser`` is the fixture through which every port test
+reaches the JAX package's native IO (``motcpp_tpu.utils.native_io``):
+a test file imports it (``from jax_cases import jax_native_parser``) and
+a test that reads or writes through the JAX package's dataset, writer or
+CLI asks for it (``tests/test_torch_golden.py`` fails otherwise).
 """
 
 import inspect
 import itertools
 import sys
+
+import pytest
+
+
+@pytest.fixture
+def jax_native_parser(monkeypatch, tmp_path):
+    """The JAX package's native parser, built into a library of this test
+    and loaded from it. ``native_io`` builds ``native/libmotcpp_io.so``
+    in place at first use and keeps a failed load for the rest of the
+    process, so under several workers one process can open another's
+    half-written library and then parse with the Python fallback, which
+    rounds otherwise. A library no other process writes is complete once
+    its build returns."""
+    from motcpp_tpu.utils import native_io
+
+    monkeypatch.setattr(native_io, "_SO", tmp_path / "libmotcpp_io.so")
+    monkeypatch.setattr(native_io, "_lib", None)
+    monkeypatch.setattr(native_io, "_tried", False)
+    assert native_io.available(), "the JAX package's native parser did not build"
+    return native_io
 
 
 def jax_cases(module, names):

@@ -918,3 +918,130 @@ def test_osblock_kernel_on_every_card(cuda):
         want = osblock.osblock_reference(folded, "conv2_0", x, w.cout)
         assert got.device == dev
         assert float((got - want).abs().max() / want.abs().max()) <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# int8 ReID: the int8 product through torch._int_mm
+# ---------------------------------------------------------------------------
+
+def int8_operands(seed, m, k, n, device):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randint(-127, 128, shape, dtype=torch.int8,
+                          generator=g).to(device) for shape in ((m, k), (k, n))]
+
+
+@pytest.mark.parametrize("m,k,n", [(17, 64, 64), (8192, 64, 256),
+                                   (4096, 256, 64), (32768, 152, 64),
+                                   (24, 512, 512), (300, 384, 96)],
+                         ids=["min_rows", "1x1_wide", "1x1_narrow",
+                              "stem_padded_k", "head", "odd_rows"])
+def test_int8_product_on_the_card_equals_its_plain_version(cuda, m, k, n):
+    """torch._int_mm equals the plain version on the card and on the CPU
+    (numpy's integer product), one launch, with b column-major (the
+    layout padded_weight gives); a row-major b raises, launching
+    nothing."""
+    from motcpp_tpu_torch.ops import int8
+
+    a, b = int8_operands(m + k + n, m, k, n, cuda)
+    want = (a.cpu().numpy().astype(np.int64)
+            @ b.cpu().numpy().astype(np.int64)).astype(np.int32)
+    w = int8.padded_weight(b)
+    before = int8.LAUNCHES
+    got = int8.int8_matmul(a, w)
+    torch.cuda.synchronize()
+    assert int8.LAUNCHES == before + 1
+    assert got.dtype == torch.int32 and got.device.type == "cuda"
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+    np.testing.assert_array_equal(
+        int8.int8_matmul_reference(a, w).cpu().numpy(), want)
+    with pytest.raises(ValueError, match="b column-major"):
+        int8.int8_matmul(a, b.contiguous())
+    assert int8.LAUNCHES == before + 1
+
+
+@pytest.mark.parametrize("m,k,n", [(16, 512, 512), (5, 147, 64),
+                                   (40, 152, 60)])
+def test_int8_product_on_the_card_pads_or_raises(cuda, m, k, n):
+    """An operand outside torch._int_mm's rules (M <= 16, K or N not a
+    multiple of 8) raises on the card, launching nothing and never
+    falling back to a float product; the padded product pads it with
+    zeros and equals the integer product."""
+    from motcpp_tpu_torch.ops import int8
+
+    a, b = int8_operands(m * k + n, m, k, n, cuda)
+    before = int8.LAUNCHES
+    with pytest.raises(ValueError, match="torch._int_mm on CUDA takes"):
+        int8.int8_matmul(a, b)
+    assert int8.LAUNCHES == before
+    want = (a.cpu().numpy().astype(np.int64)
+            @ b.cpu().numpy().astype(np.int64)).astype(np.int32)
+    got = int8.int8_matmul_padded(a, int8.padded_weight(b), n)
+    assert int8.LAUNCHES == before + 1
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+@pytest.mark.parametrize("act", ["bfloat16", "float32"])
+def test_int8_embed_on_the_card_equals_its_plain_version(cuda, act):
+    """make_embed_fn_int8 on the card (osnet_x1_0, 256x128 crops, 40
+    crops) through torch._int_mm and through the plain int8 product give
+    the same embeddings bit for bit; unit norm; no OSBlock launch."""
+    from motcpp_tpu_torch.appearance import osblock_cuda
+    from motcpp_tpu_torch.appearance.osnet import init_params, osnet_x1_0
+    from motcpp_tpu_torch.appearance.quant import make_embed_fn_int8
+    from motcpp_tpu_torch.ops import int8
+
+    embed = make_embed_fn_int8(init_params(osnet_x1_0(), seed=0),
+                               act_dtype=act, device=cuda)
+    crops = torch.randint(0, 256, (40, 256, 128, 3), dtype=torch.uint8,
+                          generator=torch.Generator().manual_seed(2)).to(cuda)
+    before = (int8.LAUNCHES, osblock_cuda.LAUNCHES)
+    got = embed(crops)
+    torch.cuda.synchronize()
+    assert int8.LAUNCHES > before[0] and osblock_cuda.LAUNCHES == before[1]
+    launch = int8.int8_matmul
+    int8.int8_matmul = int8.int8_matmul_reference
+    try:
+        want = embed(crops)
+    finally:
+        int8.int8_matmul = launch
+    assert torch.equal(got, want)
+    assert bool(((got.norm(dim=1) - 1).abs() < 1e-3).all())
+
+
+def test_live_int8_service_on_the_card_equals_the_runner(cuda):
+    """Live BoT-SORT at cadence 8 with the int8 embed (osnet_x0_25, 64x32
+    crops, bf16 activations) through the runner and through the service
+    on the card: the same emissions bit for bit, the int8 product and
+    the auction kernel launched, the OSBlock kernel not."""
+    from motcpp_tpu_torch.appearance import osblock_cuda
+    from motcpp_tpu_torch.appearance.osnet import init_params, osnet_x0_25
+    from motcpp_tpu_torch.appearance.quant import make_embed_fn_int8
+    from motcpp_tpu_torch.models.botsort import BotSortConfig, make_botsort
+    from motcpp_tpu_torch.ops import int8
+    from motcpp_tpu_torch.serving import TrackingService
+
+    S, N, T, D, k, hw = 16, 16, 10, 512, 8, (64, 32)
+    dets, masks = synth_stream_dets(np.random.default_rng(0), T, S, N,
+                                    n_obj=14)
+    crops = np.random.default_rng(1).integers(
+        0, 256, (T, S, N) + hw + (3,), dtype=np.uint8)
+    dets, masks, crops, _ = pack_valid_rows(dets, masks, crops)
+    embed = make_embed_fn_int8(init_params(osnet_x0_25(feature_dim=D),
+                                           seed=0), device=cuda)
+    init, step = make_botsort(BotSortConfig(
+        with_reid=True, emb_dim=D, max_tracks=64, max_dets=N,
+        lap_impl="auction_pallas"), device=cuda)
+    before = (int8.LAUNCHES, auction_cuda.LAUNCHES, osblock_cuda.LAUNCHES)
+    want_o, want_m = MultiStreamRunner(
+        init, step, S, device=cuda, embed_fn=embed, emb_cadence=k).run(
+        dets, masks, embs=crops)
+    svc = TrackingService(init, step, S, max_dets=N, emb_dim=D, device=cuda,
+                          crop_hw=hw, embed_fn=embed, emb_cadence=k)
+    outs, out_masks = serve(svc, dets, masks, crops)
+    assert int8.LAUNCHES > before[0]
+    assert auction_cuda.LAUNCHES - before[1] == 2 * 2 * T
+    assert osblock_cuda.LAUNCHES == before[2]
+    assert int(out_masks.sum()) > 0
+    np.testing.assert_array_equal(out_masks, want_m.cpu().numpy())
+    np.testing.assert_array_equal(outs[out_masks],
+                                  want_o.cpu().numpy()[out_masks])

@@ -3,6 +3,7 @@ solver, writes the ByteTrack and BoT-SORT goldens that the JAX package
 pins (tests/test_golden.py) byte for byte, from detections its own
 loader parses as the JAX package's does."""
 
+import ast
 from pathlib import Path
 
 import numpy as np
@@ -12,6 +13,7 @@ from motcpp_tpu_torch.cli import main
 from motcpp_tpu_torch.data import MOT17Dataset
 
 import torch_threads  # noqa: F401  (torch at one thread)
+from jax_cases import jax_native_parser  # noqa: F401  (a fixture)
 
 ROOT = Path(__file__).resolve().parent
 MOT_MINI = ROOT.parent / "assets" / "MOT17-mini" / "train"
@@ -42,23 +44,6 @@ def test_port_cli_writes_botsort_goldens(which, tmp_path):
     check_goldens("botsort", which, tmp_path)
 
 
-@pytest.fixture
-def jax_native_parser(monkeypatch, tmp_path):
-    """The JAX package's native parser, built into a library of this test
-    and loaded from it. ``native_io`` builds ``native/libmotcpp_io.so``
-    in place at first use and keeps a failed load for the rest of the
-    process, so under several workers one process can open another's
-    half-written library and then parse with the Python fallback, which
-    rounds otherwise. A library no other process writes is complete once
-    its build returns."""
-    from motcpp_tpu.utils import native_io
-
-    monkeypatch.setattr(native_io, "_SO", tmp_path / "libmotcpp_io.so")
-    monkeypatch.setattr(native_io, "_lib", None)
-    monkeypatch.setattr(native_io, "_tried", False)
-    assert native_io.available(), "the JAX package's native parser did not build"
-
-
 def test_port_loader_parses_as_the_jax_package(jax_native_parser):
     """Detections identical to the JAX package's loader, to the bit: its
     native parser (native/motcpp_io.cpp) reads float32 values and adds
@@ -78,7 +63,7 @@ def test_port_loader_parses_as_the_jax_package(jax_native_parser):
             np.testing.assert_array_equal(got[f], want[f], err_msg=f"{ps.name} {f}")
 
 
-def test_cli_reads_embedding_files_and_images(tmp_path):
+def test_cli_reads_embedding_files_and_images(jax_native_parser, tmp_path):
     """Pre-generated embeddings load as the JAX package loads them and
     reach the tracker with their frame's detections; --images hands the
     tracker the real frame; reid_weights turns on live ReID for BoT-SORT
@@ -129,3 +114,80 @@ def test_cli_reads_embedding_files_and_images(tmp_path):
                          device="cpu").reid_weights == weights
     assert not hasattr(build_tracker("bytetrack", reid_weights=weights,
                                      device="cpu"), "reid_weights")
+
+
+# the JAX package's modules and names whose use reaches
+# motcpp_tpu.utils.native_io._load
+JAX_NATIVE_MODULES = ("motcpp_tpu.cli", "motcpp_tpu.utils.native_io",
+                      "motcpp_tpu.data.mot17", "motcpp_tpu.data.mot_format")
+JAX_NATIVE_NAMES = ("MOT17Dataset", "write_mot_results")
+
+
+def _native_bindings(nodes):
+    """Names bound by the imports among ``nodes`` whose use reaches the
+    JAX package's native IO."""
+    names = set()
+    for node in nodes:
+        if isinstance(node, ast.ImportFrom) and node.module:
+            for a in node.names:
+                if (node.module in JAX_NATIVE_MODULES
+                        or f"{node.module}.{a.name}" in JAX_NATIVE_MODULES
+                        or (node.module == "motcpp_tpu.data"
+                            and a.name in JAX_NATIVE_NAMES)):
+                    names.add(a.asname or a.name)
+        elif isinstance(node, ast.Import):
+            names.update(a.asname or a.name for a in node.names
+                         if a.name in JAX_NATIVE_MODULES)
+    return names
+
+
+def functions_reaching_jax_native_io(path):
+    """{function name: its argument names} for every module-level function
+    of ``path`` that imports, or uses a module-level import of, what
+    reaches the JAX package's native IO."""
+    tree = ast.parse(Path(path).read_text())
+    top = _native_bindings(tree.body)
+    found = {}
+    for fn in tree.body:
+        if not isinstance(fn, ast.FunctionDef):
+            continue
+        inner = list(ast.walk(fn))
+        used = {n.id for n in inner if isinstance(n, ast.Name)}
+        if _native_bindings(inner) or used & top:
+            found[fn.name] = {a.arg for a in fn.args.args}
+    return found
+
+
+def test_port_tests_reach_the_jax_native_io_only_through_the_fixture():
+    """Every port test that reads or writes through the JAX package's
+    dataset, writer or CLI asks for ``jax_native_parser``, so none builds
+    or loads ``native/libmotcpp_io.so`` in place: that build races the
+    JAX package's own tests under several workers, and a worker that
+    loses it parses with the Python fallback for the rest of its run
+    (ROADMAP queue 3)."""
+    reaching, missing = [], []
+    for path in sorted(ROOT.glob("test_torch_*.py")):
+        for name, args in functions_reaching_jax_native_io(path).items():
+            reaching.append(f"{path.name}::{name}")
+            if "jax_native_parser" not in args:
+                missing.append(f"{path.name}::{name}")
+    assert "test_torch_golden.py::test_cli_reads_embedding_files_and_images" \
+        in reaching
+    assert not missing, f"reach the JAX package's native IO without the " \
+        f"jax_native_parser fixture: {missing}"
+
+
+def test_jax_native_parser_loads_a_library_of_its_own(jax_native_parser,
+                                                      tmp_path):
+    """The fixture's library is the test's own, never the in-place
+    ``native/libmotcpp_io.so``, and the JAX package's loader reads
+    through it."""
+    native_io = jax_native_parser
+    own = tmp_path / "libmotcpp_io.so"
+    assert native_io._SO == own != native_io._NATIVE_DIR / "libmotcpp_io.so"
+    assert Path(native_io._lib._name) == own and own.exists()
+    from motcpp_tpu.data import MOT17Dataset as JaxDataset
+
+    det = MOT_MINI / "MOT17-02-FRCNN" / "det" / "det.txt"
+    assert JaxDataset.load_detections(det)
+    assert native_io._lib is not None and native_io._SO == own

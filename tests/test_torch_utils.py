@@ -28,7 +28,7 @@ import test_aux
 import test_data
 import test_lap
 import torch_threads  # noqa: F401  (torch at one thread)
-from jax_cases import jax_cases, run_jax_case
+from jax_cases import jax_cases, jax_native_parser, run_jax_case  # noqa: F401
 from motcpp_tpu.ops import lap as jax_lap
 from motcpp_tpu.ops import matching as jax_matching
 from motcpp_tpu_torch.data import mot17, mot_format, synthetic
@@ -138,7 +138,7 @@ def test_jax_dataset_cases_pass_against_the_port(case, name, kwargs,
                  {"MOT17Dataset": mot17.MOT17Dataset})
 
 
-def test_get_frame_equals_the_jax_package():
+def test_get_frame_equals_the_jax_package(jax_native_parser):
     from motcpp_tpu.data import MOT17Dataset as JaxDataset
 
     port, jax_ds = mot17.MOT17Dataset(MOT_MINI), JaxDataset(MOT_MINI)

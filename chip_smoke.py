@@ -10,9 +10,10 @@ native stream mux) at the ByteTrack flagship and at live ReID, the
 utilities (configs read without PyYAML, the eval CLI's goldens and the
 MOT metrics, checkpoint failover, profiling, the ReID warm-up, the native
 IO), the streams sharded over devices (the runner, the service, the
-emission collectives and a two-process dryrun), and int8 and dense-lite
+emission collectives and a two-process dryrun), int8 and dense-lite
 ReID (live BoT-SORT through the int8 embed and the auction kernel), and
-checks what they emit.
+the serving tail-latency harness and the SLO sweep, and checks what
+they emit.
 
     python3 chip_smoke.py [--baseline OTHER_AUCTION_CU]
 
@@ -182,13 +183,31 @@ timings, so those compare float32 arithmetic. Phases:
      through TrackingService on phase 17's frames, equal to the runner bit
      for bit; (e) compose_lite_dense + _forward_folded_dense against
      forward_folded_f32 on the card with TF32 off (relative error
-     <= 1e-4), each forward's ms.
+     <= 1e-4), each forward's ms;
+ 21. the serving tail-latency harness and the SLO sweep
+     (motcpp_tpu_torch/scripts/serving_latency.py and slo_sweep.py, in
+     process; SLO_TICKS timed ticks a run): (a) the harness at its
+     defaults (ByteTrack, S=1024, N=32, K=64, 14 objects, 4 producer
+     threads submitting through the native mux, 8 warm-up ticks),
+     unpipelined and pipelined; (b) the flagship (S=4096, N=32, K=64,
+     16 objects) in --device-data mode, its first RING_EQUAL_TICKS ticks
+     equal bit for bit to the same dets through the native mux; (c) the
+     SLO sweep: the null row, the five deployed live-ReID points down
+     their ladders (osnet_x1_0 module forward in bf16, 256x128 crops
+     made on the card, pipelined at depth 4) and the producer row. Each
+     run's service is built on the native mux, every dispatched tick
+     launches the auction kernel as often as its tracker's step does
+     (STEP_LAUNCHES) and resolves with every live stream present, the
+     kernel's inputs in each run's last warm-up tick give the plain
+     auction's assignment exactly, no frame is dropped, the percentiles
+     are finite and ordered, and no sweep row is an error. No latency is
+     held to a bound: a p99 over 33 ms is a finding, not a failure.
 
 Any failed check exits nonzero before the result is printed. The last
 line is ``{"ok": true, "device": {...}}``; the line before it is the
 card's name and power limit, and the one before that lists the kernels
 with their times and bounds (those of phases 3 and 7) and their
-launches summed over the main paths of phases 3, 7 and 9-20, each
+launches summed over the main paths of phases 3, 7 and 9-21, each
 counted from zero; before those, the script's wall time.
 """
 
@@ -266,6 +285,14 @@ TRACKER_NAMES = ("sort", "bytetrack", "ocsort", "deepocsort", "strongsort",
 CLI_TRACKERS = ("sort", "bytetrack", "ocsort", "strongsort", "botsort")
 TUNE_FRAMES = 8  # scripts/tune.py's default: the bundled GT spans 8 frames
 FAILOVER_TICKS = 20  # the flagship failover's ticks, cut in the middle
+# phase 21: timed ticks of each harness run and sweep point (the JAX
+# package's scripts time 200 and 300), and (b)'s ticks held against the
+# native mux
+SLO_TICKS, RING_EQUAL_TICKS = 100, 4
+# auction launches of one tick of each tracker's step at the harness's
+# configurations (PERF.md section 3)
+STEP_LAUNCHES = {"bytetrack": 2, "botsort": 2, "strongsort": 2,
+                 "deepocsort": 2, "boosttrack": 1, "hybridsort": 3}
 
 
 class SmokeFailure(Exception):
@@ -639,6 +666,9 @@ def run_smoke(baseline=None):
     quantized = int8_phase(20, smi, live, served["live"], scene)
     del scene
 
+    # ---- 21. the serving tail-latency harness and the SLO sweep ----------
+    tail = serving_tail_phase(21, smi)
+
     motion = [p for name, p in paths.items() if not name.endswith("live")]
     live_paths = [p for name, p in paths.items() if name.endswith("live")]
     kernels = [{
@@ -650,9 +680,10 @@ def run_smoke(baseline=None):
                      + served["auction_launches"]
                      + utils["auction_launches"]
                      + sharded["auction_launches"]
-                     + quantized["auction_launches"]),
+                     + quantized["auction_launches"]
+                     + tail["auction_launches"]),
         "max_abs_err": max([max_err, sharded["auction_err"],
-                            quantized["auction_err"]]
+                            quantized["auction_err"], tail["auction_err"]]
                            + [p["auction_err"] for p in motion]
                            + [p["auction"]["auction_err"] for p in live_paths
                               if "auction" in p]),
@@ -695,6 +726,8 @@ def run_smoke(baseline=None):
           f"{quantized['auction_launches']}, OSBlock "
           f"{quantized['osblock_launches']}, int8 products (torch._int_mm, "
           f"not a kernel of this port) {quantized['int8_launches']}")
+    print(f"launches on phase 21's serving harness and sweep: auction "
+          f"{tail['auction_launches']}")
     return kernels, smi
 
 
@@ -2871,6 +2904,213 @@ def int8_phase(phase, card, live, served_live, scene):
             "osblock_launches": launches[osblock_cuda],
             "int8_launches": launches[int8],
             "auction_err": auction_stats["auction_err"]}
+
+
+@contextlib.contextmanager
+def watched_service(keep=0, capture_at=None):
+    """While inside: per TrackingService.step_async, its auction launches
+    (``launches``) and wall seconds (``dispatch``, the native mux's
+    assemble included, timed apart in ``assemble``); per
+    PendingBatch.result, its wall seconds (``fetch``: the wait for the
+    card and the copy back); the first ``keep`` batches resolved
+    (``batches``); and copies of the auction kernel's inputs in the tick
+    at index ``capture_at`` of ``launches`` (``solves``)."""
+    from motcpp_tpu_torch.ops import auction_cuda
+    from motcpp_tpu_torch.serving import mux, service
+
+    seen = {"launches": [], "dispatch": [], "assemble": [], "fetch": [],
+            "batches": [], "solves": []}
+    dispatch = service.TrackingService.step_async
+    resolve = service.PendingBatch.result
+    assemble = mux.StreamMux.assemble
+    solve = auction_cuda.solve
+
+    def recording_solve(*args):
+        seen["solves"].append([t.clone() for t in args])
+        return solve(*args)
+
+    def counted(self):
+        before = auction_cuda.LAUNCHES
+        if len(seen["launches"]) == capture_at:
+            auction_cuda.solve = recording_solve
+        t0 = time.perf_counter()
+        try:
+            out = dispatch(self)
+        finally:
+            auction_cuda.solve = solve
+        seen["dispatch"].append(time.perf_counter() - t0)
+        seen["launches"].append(auction_cuda.LAUNCHES - before)
+        return out
+
+    def kept(self):
+        t0 = time.perf_counter()
+        batch = resolve(self)
+        seen["fetch"].append(time.perf_counter() - t0)
+        if len(seen["batches"]) < keep:
+            seen["batches"].append(batch)
+        return batch
+
+    def timed_assemble(self):
+        t0 = time.perf_counter()
+        out = assemble(self)
+        seen["assemble"].append(time.perf_counter() - t0)
+        return out
+
+    service.TrackingService.step_async = counted
+    service.PendingBatch.result = kept
+    mux.StreamMux.assemble = timed_assemble
+    try:
+        yield seen
+    finally:
+        service.TrackingService.step_async = dispatch
+        service.PendingBatch.result = resolve
+        mux.StreamMux.assemble = assemble
+        auction_cuda.solve = solve
+
+
+def held_to_plain(label, solves):
+    """The auction kernel against the plain auction on each of a tick's
+    captured inputs (they must agree exactly); the largest difference."""
+    from motcpp_tpu_torch.ops import auction, auction_cuda
+
+    err = 0
+    for i, args in enumerate(solves):
+        e = matching_err(auction_cuda.solve(*args),
+                         auction.solve_lap_auction(*args))
+        check(e == 0, f"{label}: kernel and plain auction disagree on the "
+              f"tick's solve {i} {tuple(args[0].shape)}")
+        err = max(err, e)
+    return err
+
+
+def tick_split(seen, warmup):
+    """p50 and p99 ms of the dispatch, assemble and fetch of the ticks
+    after the warm-up."""
+    parts = []
+    for name in ("dispatch", "assemble", "fetch"):
+        ms = np.asarray(seen[name][warmup:]) * 1e3
+        if ms.size:
+            parts.append(f"{name} p50 {np.percentile(ms, 50):.3f} p99 "
+                         f"{np.percentile(ms, 99):.3f}")
+    return "split (ms): " + ", ".join(parts)
+
+
+def serving_tail_phase(phase, card):
+    """Phase ``phase``: the serving tail-latency harness and the SLO sweep
+    in process, through the native mux and the auction kernel (see the
+    module docstring, phase 21). Every run's row is printed; none of its
+    times is held to a bound. Returns the auction launches of every run
+    and the kernel's largest difference from the plain auction."""
+    from motcpp_tpu_torch.scripts import serving_latency as harness
+    from motcpp_tpu_torch.scripts import slo_sweep
+    from motcpp_tpu_torch.serving import TrackingService
+
+    print(f"phase {phase} the serving tail-latency harness and the SLO "
+          f"sweep: started; card: {card}")
+    t_phase = time.perf_counter()
+    launches, max_err = 0, 0
+    # the auction's inputs are captured in the last warm-up tick, so no
+    # timed tick pays for the copies
+    capture_at = harness.parser().get_default("warmup") - 1
+
+    def checked(label, args, row, report, seen):
+        """The run's correctness checks; prints its row."""
+        nonlocal launches, max_err
+        got, want = seen["launches"], STEP_LAUNCHES[args.tracker]
+        split = tick_split(seen, args.warmup)
+        solves = seen["solves"]
+        for name in ("launches", "dispatch", "assemble", "fetch", "solves"):
+            seen[name] = []
+        check(len(solves) == want, f"{label}: {len(solves)} auction solves "
+              f"captured in tick {capture_at}, want {want}")
+        err = held_to_plain(label, solves)
+        max_err = max(max_err, err)
+        check(report["native_mux"],
+              f"{label}: the service was not built on the native mux")
+        check(got and set(got) == {want}, f"{label}: auction launches a "
+              f"tick {sorted(set(got))}, want {want}")
+        presents = report["presents"]
+        check(len(presents) == len(got), f"{label}: {len(got)} ticks "
+              f"dispatched, {len(presents)} resolved")
+        check(set(presents) == {report["live"]}, f"{label}: ticks with "
+              f"{sorted(set(presents))} of {report['live']} live streams "
+              f"present")
+        check(report["stats"]["dropped"] == 0,
+              f"{label}: {report['stats']['dropped']} frames dropped")
+        qs = [row[k] for k in ("p50", "p90", "p95", "p99", "max")]
+        check(bool(np.all(np.isfinite(qs))) and qs == sorted(qs),
+              f"{label}: percentiles {qs} are not finite and ordered")
+        launches += sum(got)
+        shapes = [tuple(a[0].shape) for a in solves]
+        print(f"phase {phase} {label}: {len(got)} ticks, {sum(got)} auction "
+              f"launches; kernel = plain auction on tick {capture_at}'s "
+              f"solves {shapes} (max abs err {err}); {split}; "
+              f"{json.dumps(row)}")
+
+    def run(label, argv, keep=0):
+        args = harness.parser().parse_args(argv + ["--ticks",
+                                                   str(SLO_TICKS)])
+        report = {}
+        with watched_service(keep, capture_at) as seen:
+            row = harness.measure(args, report=report)
+        checked(label, args, row, report, seen)
+        return seen["batches"]
+
+    # (a) the harness at its defaults: producer threads, native mux
+    run("(a) ByteTrack S=1024, 4 producers", [])
+    run("(a) ByteTrack S=1024, 4 producers, pipelined", ["--pipeline"])
+
+    # (b) the flagship in device-data mode against the native mux
+    kept = run(f"(b) ByteTrack S={S} device data",
+               ["--streams", str(S), "--max-dets", str(N),
+                "--max-tracks", str(K), "--objects", str(N_OBJ),
+                "--device-data"], keep=RING_EQUAL_TICKS)
+    dets, masks = harness.staged_frames(RING_EQUAL_TICKS, S, N, N_OBJ)
+    svc = TrackingService.from_tracker(
+        "bytetrack", S, max_dets=N,
+        tracker_kw=dict(max_tracks=K, lap_impl="auction_pallas"),
+        device="cuda")
+    hs = [svc.attach() for _ in range(S)]
+    emitted = 0
+    for t, got in enumerate(kept):
+        for s, h in enumerate(hs):
+            svc.submit(h, dets[t, s, :int(masks[t, s].sum())])
+        want = svc.step()
+        same = (np.array_equal(got.out_masks, want.out_masks)
+                and np.array_equal(got.outs[got.out_masks],
+                                   want.outs[want.out_masks]))
+        check(same, f"(b) tick {t}: the staged ring's emissions differ from "
+              f"the same dets through the native mux")
+        emitted += int(got.out_masks.sum())
+    check(len(kept) == RING_EQUAL_TICKS and emitted > 0,
+          f"(b) {len(kept)} ticks kept, {emitted} emissions")
+    print(f"phase {phase} (b) the first {len(kept)} device-data ticks = the "
+          f"same dets through the native mux bit for bit ({emitted} "
+          f"emissions)")
+    del svc, kept
+    harness_s = time.perf_counter() - t_phase
+
+    # (c) the SLO sweep
+    t_sweep = time.perf_counter()
+    with watched_service(capture_at=capture_at) as seen:
+        def on_run(args, row, report):
+            mode = ("device data" if args.device_data
+                    else f"{args.producers} producers")
+            checked(f"(c) {args.tracker} S={args.streams} {mode}", args, row,
+                    report, seen)
+
+        record = slo_sweep.sweep(ticks=SLO_TICKS,
+                                 run=slo_sweep.Harness(on_run=on_run))
+    errors = [r for r in record["rows"] if "error" in r]
+    check(not errors, f"(c) sweep rows with errors: {errors}")
+    for row in record["rows"]:
+        print(f"phase {phase} (c) row: {json.dumps(row)}")
+    print(f"phase {phase} (c) summary (p99 <= {slo_sweep.SLO_MS} ms; card "
+          f"{record['_meta']['card']}): {json.dumps(record['summary'])}")
+    sweep_s = time.perf_counter() - t_sweep
+    print(f"phase {phase} wall time {time.perf_counter() - t_phase:.1f} s: "
+          f"(a) and (b) {harness_s:.1f} s, the sweep {sweep_s:.1f} s")
+    return {"auction_launches": launches, "auction_err": max_err}
 
 
 def main(argv=None):

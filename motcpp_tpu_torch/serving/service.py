@@ -36,7 +36,11 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from motcpp_tpu_torch.device import PerDevice, resolve_device
+from motcpp_tpu_torch.device import (
+    PerDevice,
+    canonical_device,
+    resolve_device,
+)
 from motcpp_tpu_torch.parallel.collectives import resolve_mesh
 from motcpp_tpu_torch.parallel.streams import (
     gather_state,
@@ -509,7 +513,7 @@ class TrackingService:
                 if self._cad_compact:
                     # the shard's slots scheduled this tick, as
                     # make_service_step derives them from the tick
-                    rows = np.arange(
+                    rows = slice(
                         rows.start + (-self._ticks) % self.emb_cadence,
                         rows.stop, self.emb_cadence)
                 args.append(put(crops, rows))
@@ -530,28 +534,38 @@ class TrackingService:
         return PendingBatch(present=present, _outs=outs[0],
                             _out_masks=out_masks[0], _t0=t0, _svc_ref=self)
 
-    def _put(self, a: np.ndarray, rows=None, device=None) -> torch.Tensor:
-        """A copy of host array ``a`` (of its ``rows`` along axis 0, a
-        slice or indices) on ``device`` (default: the service's), never a
-        view of ``a``: the mux overwrites its batch buffers on the next
-        assemble, so a tensor that aliased one would change under whoever
-        holds it (the priority mode holds the previous tick's dets). On a
-        CUDA device the copy goes through pinned memory with
-        ``non_blocking=True``, so the dispatch does not wait for the
-        device; PyTorch's pinned-memory cache hands the block out again
-        only after that transfer has completed."""
+    def _put(self, a, rows=None, device=None) -> torch.Tensor:
+        """The ``rows`` of ``a`` along axis 0 (a slice; default all) on
+        ``device`` (default: the service's).
+
+        A host array is copied, never viewed: the mux overwrites its
+        batch buffers on the next assemble, so a tensor that aliased one
+        would change under whoever holds it (the priority mode holds the
+        previous tick's dets). On a CUDA device the copy goes through
+        pinned memory with ``non_blocking=True``, so the dispatch does
+        not wait for the device; PyTorch's pinned-memory cache hands the
+        block out again only after that transfer has completed.
+
+        A tensor (from a mux that hands out tick inputs already staged
+        on the device, as the serving harness's ``--device-data`` ring
+        does) must lie on ``device``: its rows are taken there as a view,
+        with no copy and no trip through the host. Such a mux must not
+        write a tensor it has handed out. A tensor on another device
+        raises."""
         device = self.device if device is None else device
-        if isinstance(rows, slice):
-            a, rows = a[rows], None
+        if rows is not None:
+            a = a[rows]
+        if isinstance(a, torch.Tensor):
+            if canonical_device(a.device) != canonical_device(device):
+                raise ValueError(
+                    f"the mux handed over a tensor on {a.device}; the "
+                    f"service takes tensors only on {device}")
+            return a
         if device.type != "cuda":
-            return torch.from_numpy(a.copy() if rows is None else a[rows])
-        shape = a.shape if rows is None else (len(rows),) + a.shape[1:]
-        buf = torch.empty(shape, dtype=torch.from_numpy(a[:0]).dtype,
+            return torch.from_numpy(a.copy())
+        buf = torch.empty(a.shape, dtype=torch.from_numpy(a[:0]).dtype,
                           pin_memory=True)
-        if rows is None:
-            np.copyto(buf.numpy(), a)
-        else:
-            np.take(a, rows, axis=0, out=buf.numpy())
+        np.copyto(buf.numpy(), a)
         return buf.to(device, non_blocking=True)
 
     def _record_tick(self, t0: float, batch: ServedBatch) -> None:

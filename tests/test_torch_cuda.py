@@ -588,6 +588,112 @@ def test_live_service_on_the_card_equals_the_runner(cuda):
                                   want_o.cpu().numpy()[out_masks])
 
 
+@pytest.fixture
+def dispatch_launches(monkeypatch):
+    """Auction kernel launches of every TrackingService.step_async."""
+    from motcpp_tpu_torch.serving import TrackingService
+
+    deltas, dispatch = [], TrackingService.step_async
+
+    def counted(self):
+        before = auction_cuda.LAUNCHES
+        out = dispatch(self)
+        deltas.append(auction_cuda.LAUNCHES - before)
+        return out
+
+    monkeypatch.setattr(TrackingService, "step_async", counted)
+    return deltas
+
+
+@pytest.mark.parametrize("extra", [[], ["--pipeline"],
+                                   ["--pipeline", "--device-data"]],
+                         ids=["producers", "pipelined", "device_data"])
+def test_serving_harness_on_the_card_launches_the_kernel_every_tick(
+        cuda, dispatch_launches, extra):
+    """The serving latency harness at S=64 on the card (ByteTrack,
+    producer threads through the native mux, or the staged ring): every
+    dispatched tick launches the auction kernel twice and is resolved
+    with every stream present, no frame is dropped, the percentiles are
+    ordered and the row names the card and its power limit."""
+    from motcpp_tpu_torch.scripts import serving_latency as harness
+
+    report = {}
+    row = harness.measure(harness.parser().parse_args(
+        ["--streams", "64", "--warmup", "2", "--ticks", "10",
+         "--producers", "2"] + extra), report=report)
+    assert report["native_mux"]
+    assert dispatch_launches and set(dispatch_launches) == {2}
+    assert len(dispatch_launches) == len(report["presents"])
+    assert set(report["presents"]) == {64}
+    assert report["stats"]["dropped"] == 0
+    qs = [row[k] for k in ("p50", "p90", "p95", "p99", "max")]
+    assert np.all(np.isfinite(qs)) and qs == sorted(qs)
+    assert row["device"] == torch.cuda.get_device_name(0)
+    assert row["power_limit"].endswith("W")
+
+
+@pytest.mark.parametrize("live", [False, True],
+                         ids=["bytetrack", "botsort_live_cadence"])
+def test_device_data_tick_equals_the_mux_tick(cuda, dispatch_launches, live):
+    """Ticks of the harness's --device-data ring (dets, masks and, live,
+    crops staged on the card and handed to the service as tensors),
+    each dispatched with step_async under CUDA sync debug mode "error",
+    equal bit for bit the ticks of the same frames and crops through the
+    native mux: the staged tensors make no trip through the host and the
+    dispatch does not wait for the card."""
+    from motcpp_tpu_torch.appearance.osnet import init_params, osnet_x0_25
+    from motcpp_tpu_torch.appearance.reid import make_embed_fn
+    from motcpp_tpu_torch.scripts import serving_latency as harness
+    from motcpp_tpu_torch.serving import StreamMux, TrackingService
+
+    S, N, R, hw = 16, 16, 4, (64, 32)
+    dets, masks = harness.staged_frames(R, S, N, 14)
+    kw = dict(tracker_kw=dict(max_tracks=64, lap_impl="auction_pallas"),
+              device=cuda)
+    ring = [[torch.from_numpy(d).to(cuda), torch.from_numpy(m).to(cuda),
+             None] for d, m in zip(dets, masks)]
+    crops = None
+    if live:
+        embed = make_embed_fn(init_params(osnet_x0_25(feature_dim=16), 0),
+                              compute_dtype="bfloat16", fused=True,
+                              device=cuda)
+        kw.update(emb_dim=16, crop_hw=hw, embed_fn=embed, emb_cadence=2)
+        for r, e in enumerate(ring):
+            e[2] = torch.randint(0, 255, (S, N) + hw + (3,), dtype=torch.uint8,
+                                 generator=torch.Generator(cuda)
+                                 .manual_seed(r), device=cuda)
+        crops = np.stack([e[2].cpu().numpy() for e in ring])
+    name = "botsort" if live else "bytetrack"
+    staged = TrackingService.from_tracker(name, S, max_dets=N, **kw)
+    for _ in range(S):
+        staged.attach()
+    staged.mux = harness.DeviceRingMux(ring, S, S, cuda)
+    torch.cuda.synchronize()
+    via_mux = TrackingService.from_tracker(name, S, max_dets=N, **kw)
+    assert isinstance(via_mux.mux, StreamMux)
+    hs = [via_mux.attach() for _ in range(S)]
+    emitted = 0
+    for t in range(2 * R):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            pending = staged.step_async()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        got = pending.result()
+        r = t % R
+        for s, h in enumerate(hs):
+            n = int(masks[r, s].sum())
+            via_mux.submit(h, dets[r, s, :n],
+                           crops=None if crops is None else crops[r, s, :n])
+        want = via_mux.step()
+        np.testing.assert_array_equal(got.out_masks, want.out_masks)
+        np.testing.assert_array_equal(got.outs[got.out_masks],
+                                      want.outs[want.out_masks])
+        emitted += int(got.out_masks.sum())
+    assert emitted > 0
+    assert set(dispatch_launches) == {2}
+
+
 def serve_range(svc, hs, dets, masks, ticks):
     """Submit every stream's frame of each tick in ``ticks`` and step;
     returns the stacked outs and out_masks."""

@@ -195,6 +195,27 @@ def test_serving_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
     assert all(t.device.type == "cpu" for t in svc.states)
 
 
+def test_serving_harness_entry_points_default_to_cuda_and_raise_without_it(
+        no_cuda, tmp_path):
+    """The serving latency harness and the SLO sweep run on the card and,
+    without --cpu, raise where there is none, before the sweep writes
+    anything."""
+    from motcpp_tpu_torch.scripts import serving_latency, slo_sweep
+
+    assert any(p.parent.name == "scripts" for p in PORT_FILES)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serving_latency.main(["--streams", "4", "--ticks", "2"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serving_latency.main(["--tracker", "botsort", "--streams", "8",
+                              "--live-reid", "--device-data", "--ticks", "2"])
+    out = tmp_path / "slo.json"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        slo_sweep.main(["--ticks", "2", "--out", str(out)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        slo_sweep.main(["--tracker", "botsort", "--out", str(out)])
+    assert not out.exists()
+
+
 @pytest.mark.parametrize("path", PORT_FILES,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_yaml_import(path):

@@ -11,9 +11,12 @@ utilities (configs read without PyYAML, the eval CLI's goldens and the
 MOT metrics, checkpoint failover, profiling, the ReID warm-up, the native
 IO), the streams sharded over devices (the runner, the service, the
 emission collectives and a two-process dryrun), int8 and dense-lite
-ReID (live BoT-SORT through the int8 embed and the auction kernel), and
-the serving tail-latency harness and the SLO sweep, and checks what
-they emit.
+ReID (live BoT-SORT through the int8 embed and the auction kernel),
+the serving tail-latency harness and the SLO sweep, and the
+time-attribution tools (the per-piece OSNet profile, the stage
+microbenchmarks, the stage ablation and the select microbench), and
+checks what they emit. The trackers are built at the scoreboard's
+configurations by ``motcpp_tpu_torch/scripts/tracker_fns.py``.
 
     python3 chip_smoke.py [--baseline OTHER_AUCTION_CU]
 
@@ -202,12 +205,33 @@ timings, so those compare float32 arithmetic. Phases:
      auction's assignment exactly, no frame is dropped, the percentiles
      are finite and ordered, and no sweep row is an error. No latency is
      held to a bound: a p99 over 33 ms is a finding, not a failure.
+ 22. the time-attribution tools of motcpp_tpu_torch/scripts/, in process
+     (PROFILE_*, STAGE_ITERS, ABLATE_*, SELECT_* set their sizes): (a)
+     profile_osnet, osnet_x1_0 at 2048 crops of 256x128 in bf16, --fused
+     --roofline: the module forward, the fused forward and each of their
+     pieces alone (conv1, max pool, six OSBlocks, two transitions, conv5,
+     head) beside its bound, the OSBlock kernel rows beside their plain
+     version; the fused forward's per-crop cosine to the module forward
+     in float32 (TF32 off), each piece alone in bf16 (on the float32
+     chain's input, both paths to float32 and to each other) and each
+     kernel block to its plain version at least 0.999 (the bf16
+     forwards' cosines to each other and to float32, which rounding
+     grown through depth sets, are printed), and the six kernel block
+     rows within 20% of phase 7's six-block kernel time; (b)
+     profile_stages at S=4096, every stage (plain auction, the auction
+     kernel, IoU, Kalman predict and update, sof_jax_batch): the
+     kernel's row2col and col2row equal the plain auction's; (c)
+     ablate_cost on ByteTrack and BoostTrack at S=2048, T=30, the LAP and
+     the IoU stubbed: each stub called, and one unstubbed rollout split
+     by device time with kernels inside the LAP's ranges; (d)
+     microbench_select at S=2048: every case exact. The tools' warm-up
+     calls and comparison launches are not counted.
 
 Any failed check exits nonzero before the result is printed. The last
 line is ``{"ok": true, "device": {...}}``; the line before it is the
 card's name and power limit, and the one before that lists the kernels
 with their times and bounds (those of phases 3 and 7) and their
-launches summed over the main paths of phases 3, 7 and 9-21, each
+launches summed over the main paths of phases 3, 7 and 9-22, each
 counted from zero; before those, the script's wall time.
 """
 
@@ -231,11 +255,19 @@ os.environ.setdefault("CUDA_VISIBLE_DEVICES", "0")
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-# H100 SXM (NVIDIA data sheet): HBM rate, float32 rate outside the
-# tensor cores and dense bf16 tensor-core rate, at the 700 W power limit
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
-BF16_OPS_PER_S = 989e12
+# the H100's published rates (HBM, float32 and bf16), the timing and the
+# bounds are shared with the measurement tools in motcpp_tpu_torch/scripts
+from motcpp_tpu_torch.utils.profiling import (  # noqa: E402
+    FP32_OPS_PER_S,
+    HBM_BYTES_PER_S,
+    bound_ms,
+    call_ms,
+    crop_cosine,
+    device_split,
+    exact_float32,
+    osblock_bound_ms,
+    ranged,
+)
 
 S, K, N, N_OBJ, T, REPEATS = 4096, 64, 32, 16, 60, 5
 CHECK_SHAPES = [(64, 32, 4096), (128, 64, 1024), (128, 128, 1024),
@@ -289,6 +321,14 @@ FAILOVER_TICKS = 20  # the flagship failover's ticks, cut in the middle
 # package's scripts time 200 and 300), and (b)'s ticks held against the
 # native mux
 SLO_TICKS, RING_EQUAL_TICKS = 100, 4
+# phase 22: profile_osnet's crops and model (phase 7's widths), its timed
+# calls a piece; profile_stages' calls a stage; ablate_cost's trackers,
+# streams and frames and its timed rollouts; microbench_select's streams
+# and calls a case
+PROFILE_CROPS, PROFILE_REPEATS = 2048, 3
+STAGE_ITERS = 3
+ABLATE_TRACKERS, ABLATE_T, ABLATE_REPEATS = ("bytetrack", "boosttrack"), 30, 2
+SELECT_STREAMS, SELECT_REPEATS = 2048, 20
 # auction launches of one tick of each tracker's step at the harness's
 # configurations (PERF.md section 3)
 STEP_LAUNCHES = {"bytetrack": 2, "botsort": 2, "strongsort": 2,
@@ -302,46 +342,6 @@ class SmokeFailure(Exception):
 def check(ok, msg):
     if not ok:
         raise SmokeFailure(msg)
-
-
-@contextlib.contextmanager
-def exact_float32():
-    """TF32 off for float32 matrix products and convolutions inside the
-    block, PyTorch's settings restored after it."""
-    saved = (torch.backends.cuda.matmul.allow_tf32,
-             torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        (torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cudnn.allow_tf32) = saved
-
-
-def cuda_ms(fn, reps):
-    """Mean device time of fn() over reps calls, after one warm-up. The
-    timed calls are queued behind a kernel that sleeps for longer than
-    the host takes to launch them, so the device runs them back to back:
-    a call whose launch takes the host longer than its kernel takes the
-    device is timed by the device, not by the host. (A call that
-    synchronises with the host is timed with the host's gaps.)"""
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn()
-    host_s = time.perf_counter() - t0
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    # at most 2e9 cycles a second (the H100's boost clock is 1.98 GHz)
-    torch.cuda._sleep(int(min(1.5 * reps * host_s, 0.05) * 2e9))
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def auction_inputs(rng, P, k, n):
@@ -377,9 +377,7 @@ def auction_bound_ms(cost, rm, cm, th):
                   .any(1).sum())
     nbytes = (sectors * 32 + rm.numel() + cm.numel() + th.numel() * 4
               + P * (k + n) * 4)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 2 * int(valid.sum()) / FP32_OPS_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    return bound_ms(2 * int(valid.sum()), nbytes, FP32_OPS_PER_S)
 
 
 def full_tile_bound_ms(cost, rm, cm, th):
@@ -434,7 +432,7 @@ def baseline_ms(baseline, key, args):
 
     err = matching_err(baseline(*args), auction.solve_lap_auction(*args))
     check(err == 0, f"baseline kernel and plain auction disagree at {key}")
-    return cuda_ms(lambda: baseline(*args), 10), "baseline kernel"
+    return call_ms(lambda: baseline(*args), 10)[0], "baseline kernel"
 
 
 def matching_err(got, want):
@@ -485,10 +483,20 @@ def profile_frames(runner, dets, masks, frames=10):
             f"top operators by device time per frame: {top}")
 
 
+def scoreboard(tracker, live=False):
+    """make(lap) of ``tracker`` at the scoreboard's configuration
+    (``scripts/tracker_fns.py``, bench.py's ``build_tracker_fns``) on the
+    card: K=64, N=32, or with ``live`` the live-ReID shape (K=LIVE_K,
+    N=LIVE_N, embeddings of LIVE_D, ReID on)."""
+    from motcpp_tpu_torch.scripts.tracker_fns import build_tracker_fns
+
+    if live:
+        return lambda lap: build_tracker_fns(tracker, LIVE_K, LIVE_N, lap,
+                                             emb_dim=LIVE_D, device="cuda")
+    return lambda lap: build_tracker_fns(tracker, K, N, lap, device="cuda")
+
+
 def run_smoke(baseline=None):
-    from motcpp_tpu_torch.models.bytetrack import ByteTrackConfig, make_bytetrack
-    from motcpp_tpu_torch.models.ocsort import OCSortConfig, make_ocsort
-    from motcpp_tpu_torch.models.sort import SortConfig, make_sort
     from motcpp_tpu_torch.ops import auction, auction_cuda
 
     # ---- 1. build (both kernels, one nvcc each, started together) ------
@@ -531,8 +539,8 @@ def run_smoke(baseline=None):
         max_err = max(max_err, err)
         check(err == 0, f"kernel and plain auction disagree at K={k}, N={n}")
         matched = int((got[0] >= 0).sum())
-        k_ms = cuda_ms(lambda: auction_cuda.solve(*args), 10)
-        p_ms = cuda_ms(lambda: auction.solve_lap_auction(*args), 1)
+        k_ms = call_ms(lambda: auction_cuda.solve(*args), 10)[0]
+        p_ms = call_ms(lambda: auction.solve_lap_auction(*args), 1)[0]
         o_ms, o_name = baseline_ms(baseline, (k, n, P), args)
         other = "not measured" if o_ms is None else f"{o_ms:.4f} ms"
         print(f"phase 2 kernel=plain K={k} N={n} P={P}: identical "
@@ -555,57 +563,26 @@ def run_smoke(baseline=None):
     # ---- 3-4. the ByteTrack main path; kernel path against plain path ---
     byte = tracker_path(
         (3, 4), "ByteTrack", S, ("stage 1", "stages 2+3"),
-        lambda lap: make_bytetrack(ByteTrackConfig(
-            max_tracks=K, max_dets=N, lap_impl=lap), device="cuda"),
-        smi, previous=lambda name, args: baseline_ms(baseline, name, args),
+        scoreboard("bytetrack"), smi,
+        previous=lambda name, args: baseline_ms(baseline, name, args),
         keep=True)
 
     # ---- 5-8. the live-ReID BoT-SORT path --------------------------------
     live = live_reid_phases(osblock_build, smi)
 
     # ---- 9. SORT at bench.py's saturation point ---------------------------
-    sort = tracker_path(
-        (9, 9), "SORT", S, ("stage 1",),
-        lambda lap: make_sort(SortConfig(
-            min_hits=1, max_age=3, max_tracks=K, max_dets=N, lap_impl=lap),
-            device="cuda"), smi)
+    sort = tracker_path((9, 9), "SORT", S, ("stage 1",), scoreboard("sort"),
+                        smi)
 
     # ---- 10. OC-SORT at bench.py's default stream count ------------------
-    ocsort = tracker_path(
-        (10, 10), "OC-SORT", OC_S, ("stage 1", "OCR"),
-        lambda lap: make_ocsort(OCSortConfig(
-            min_hits=1, max_tracks=K, max_dets=N, lap_impl=lap),
-            device="cuda"), smi)
+    ocsort = tracker_path((10, 10), "OC-SORT", OC_S, ("stage 1", "OCR"),
+                          scoreboard("ocsort"), smi)
 
     # ---- 11. StrongSORT live ReID at its deployed priority budget --------
-    from motcpp_tpu_torch.models.boosttrack import (
-        BoostTrackConfig,
-        make_boosttrack,
-    )
-    from motcpp_tpu_torch.models.deepocsort import (
-        DeepOCSortConfig,
-        make_deepocsort,
-    )
-    from motcpp_tpu_torch.models.hybridsort import (
-        HybridSortConfig,
-        make_hybridsort,
-    )
-    from motcpp_tpu_torch.models.strongsort import (
-        StrongSortConfig,
-        make_strongsort,
-    )
-
-    def live_make(make, cfg, **kw):
-        """make(lap) of a tracker at the live-ReID shape."""
-        return lambda lap: make(cfg(emb_dim=LIVE_D, max_tracks=LIVE_K,
-                                    max_dets=LIVE_N, lap_impl=lap, **kw),
-                                device="cuda")
-
     model, scene = live["model"], live.pop("scene")
     budget = round(STRONG_PRIORITY * LIVE_S * LIVE_N)
     strong = live_tracker_phases(
-        11, "StrongSORT", live_make(make_strongsort, StrongSortConfig,
-                                    n_init=1, gallery_cap=16),
+        11, "StrongSORT", scoreboard("strongsort", live=True),
         ("stage A", "stage B"), model, scene, smi,
         [(f"priority {STRONG_PRIORITY}", None, budget),
          ("every frame", None, None)])
@@ -615,35 +592,25 @@ def run_smoke(baseline=None):
     paths = {"ByteTrack": byte, "BoT-SORT live": live, "SORT": sort,
              "OC-SORT": ocsort, "StrongSORT live": strong}
     trackers = (
-        (12, "DeepOC-SORT", ("stage 1", "OCR"), make_deepocsort,
-         DeepOCSortConfig, dict(embedding_off=True, cmc_off=True),
-         dict(embedding_off=False, cmc_off=True),
+        (12, "DeepOC-SORT", "deepocsort", ("stage 1", "OCR"),
          (f"cadence {DEEPOC_CADENCE}", DEEPOC_CADENCE, None)),
-        (13, "BoostTrack", ("stage 1",), make_boosttrack, BoostTrackConfig,
-         {}, dict(with_reid=True),
+        (13, "BoostTrack", "boosttrack", ("stage 1",),
          (f"cadence {BOOST_CADENCE}", BOOST_CADENCE, None)),
-        (14, "HybridSORT", ("stage 1", "BYTE", "rematch"), make_hybridsort,
-         HybridSortConfig, dict(with_reid=False), dict(with_reid=True),
+        (14, "HybridSORT", "hybridsort", ("stage 1", "BYTE", "rematch"),
          (f"priority {HYBRID_PRIORITY}", None,
           round(HYBRID_PRIORITY * LIVE_S * LIVE_N))),
     )
-    for phase, name, stages, make, cfg, motion_kw, live_kw, point in trackers:
-        paths[name] = tracker_path(
-            (phase, phase), name, OC_S, stages,
-            lambda lap, make=make, cfg=cfg, kw=motion_kw: make(cfg(
-                min_hits=1, max_tracks=K, max_dets=N, lap_impl=lap, **kw),
-                device="cuda"), smi)
+    for phase, name, tracker, stages, point in trackers:
+        paths[name] = tracker_path((phase, phase), name, OC_S, stages,
+                                   scoreboard(tracker), smi)
         paths[f"{name} live"] = live_tracker_phases(
-            phase, name, live_make(make, cfg, min_hits=1, **live_kw), stages,
-            model, scene, smi, [point])
+            phase, name, scoreboard(tracker, live=True), stages, model,
+            scene, smi, [point])
 
     # ---- 15. UCMCTrack at bench.py's config (bench.py:128-133) -------------
-    from motcpp_tpu_torch.models.ucmctrack import UCMCConfig, make_ucmctrack
-
     paths["UCMCTrack"] = tracker_path(
         (15, 15), "UCMCTrack", OC_S, ("stage 1", "stages 2+3"),
-        lambda lap: make_ucmctrack(UCMCConfig(
-            max_tracks=K, max_dets=N, lap_impl=lap), device="cuda"), smi)
+        scoreboard("ucmctrack"), smi)
 
     # ---- 16. live camera motion: bench.py's strongsort_cmc_ecc row --------
     paths["StrongSORT ECC"] = live_ecc_phase(16, smi)
@@ -669,6 +636,10 @@ def run_smoke(baseline=None):
     # ---- 21. the serving tail-latency harness and the SLO sweep ----------
     tail = serving_tail_phase(21, smi)
 
+    # ---- 22. the time-attribution tools: the per-piece OSNet profile, the
+    #      stage microbenchmarks, the stage ablation, the select microbench
+    tools = attribution_phase(22, smi, live["osblock"]["ms"])
+
     motion = [p for name, p in paths.items() if not name.endswith("live")]
     live_paths = [p for name, p in paths.items() if name.endswith("live")]
     kernels = [{
@@ -681,9 +652,11 @@ def run_smoke(baseline=None):
                      + utils["auction_launches"]
                      + sharded["auction_launches"]
                      + quantized["auction_launches"]
-                     + tail["auction_launches"]),
+                     + tail["auction_launches"]
+                     + tools["auction_launches"]),
         "max_abs_err": max([max_err, sharded["auction_err"],
-                            quantized["auction_err"], tail["auction_err"]]
+                            quantized["auction_err"], tail["auction_err"],
+                            tools["auction_err"]]
                            + [p["auction_err"] for p in motion]
                            + [p["auction"]["auction_err"] for p in live_paths
                               if "auction" in p]),
@@ -701,8 +674,9 @@ def run_smoke(baseline=None):
                      + served["osblock_launches"]
                      + utils["osblock_launches"]
                      + sharded["osblock_launches"]
-                     + quantized["osblock_launches"]),
-        "max_abs_err": max([sharded["osblock_err"]]
+                     + quantized["osblock_launches"]
+                     + tools["osblock_launches"]),
+        "max_abs_err": max([sharded["osblock_err"], tools["osblock_err"]]
                            + [p["osblock"]["max_err"] for p in live_paths]),
         "ms": live["osblock"]["ms"],
         "plain_ms": live["osblock"]["plain_ms"],
@@ -728,6 +702,8 @@ def run_smoke(baseline=None):
           f"not a kernel of this port) {quantized['int8_launches']}")
     print(f"launches on phase 21's serving harness and sweep: auction "
           f"{tail['auction_launches']}")
+    print(f"launches on phase 22's tools: auction {tools['auction_launches']}"
+          f", OSBlock {tools['osblock_launches']}")
     return kernels, smi
 
 
@@ -852,8 +828,8 @@ def auction_on_path(phase, label, stage_names, run_frame, card,
         max_err = max(max_err, err)
         check(err == 0, f"kernel and plain auction disagree on the {label} "
               f"path's {name}")
-        ks = cuda_ms(lambda: solve(*args), 20)
-        ps = cuda_ms(lambda: auction.solve_lap_auction(*args), 3)
+        ks = call_ms(lambda: solve(*args), 20)[0]
+        ps = call_ms(lambda: auction.solve_lap_auction(*args), 3)[0]
         bs, by = auction_bound_ms(*args)
         other = ""
         if previous is not None:
@@ -871,24 +847,6 @@ def auction_on_path(phase, label, stage_names, run_frame, card,
     return {"auction_err": max_err, "ms": k_ms, "plain_ms": p_ms,
             "bound_ms": b_ms,
             "bound_by": "bytes" if bound_by == {"bytes"} else "operations"}
-
-
-def osblock_bound_ms(w, B, H, W, dtype):
-    """Least time for one block over B crops: its input read once and its
-    output written once (weights too) at the HBM rate, or its
-    multiply-adds at the peak rate of the type (bf16 tensor cores, or
-    float32 CUDA cores), whichever is longer."""
-    elem = 2 if dtype == torch.bfloat16 else 4
-    nbytes = (B * H * W * (w.cin + w.cout) * elem
-              + w.mats.numel() * elem + w.biases.numel() * 4)
-    macs_px = (w.cin * w.mid + 10 * (w.mid * w.mid + 9 * w.mid)
-               + 4 * w.mid + w.mid * w.cout
-               + (w.cin * w.cout if w.has_ds else 0))
-    ops = 2 * B * (H * W * macs_px + 4 * 2 * w.mid * w.hidden)
-    peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / peak * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def sass_mma_counts(path):
@@ -914,12 +872,6 @@ def sass_mma_counts(path):
         elif fn is not None and "HMMA" in line:
             counts[fn] += 1
     return counts
-
-
-def crop_cosine(a, b):
-    """Per-crop cosine of two (B, ...) tensors, in float32."""
-    a, b = a.float().reshape(a.shape[0], -1), b.float().reshape(b.shape[0], -1)
-    return (a * b).sum(1) / (a.norm(dim=1) * b.norm(dim=1)).clamp_min(1e-30)
 
 
 def x1_block_inputs(gen):
@@ -1073,9 +1025,9 @@ def osblock_on_path(phase, runner, dets, masks, crops, shards=1):
             check(cos >= 0.999,
                   f"main path {w.name}: cosine {cos:.5f} < 0.999")
             max_err = max(max_err, err)
-            ks = cuda_ms(lambda: launch(w, x), 3)
-            ps = cuda_ms(lambda: osblock.osblock_reference(w.folded, w.name, x,
-                                                           w.cout), 1)
+            ks = call_ms(lambda: launch(w, x), 3)[0]
+            ps = call_ms(lambda: osblock.osblock_reference(w.folded, w.name, x,
+                                                           w.cout), 1)[0]
             bs, by = osblock_bound_ms(w, *x.shape[:3], x.dtype)
             k_ms, p_ms, b_ms = k_ms + ks, p_ms + ps, b_ms + bs
             bound_by.add(by)
@@ -1136,7 +1088,6 @@ def live_reid_phases(osblock_build, card):
     from motcpp_tpu_torch.appearance.quant import fold_osnet
     from motcpp_tpu_torch.appearance.reid import make_embed_fn
     from motcpp_tpu_torch.data import synth_stream_dets
-    from motcpp_tpu_torch.models.botsort import BotSortConfig, make_botsort
     from motcpp_tpu_torch.ops import auction_cuda
     from motcpp_tpu_torch.parallel.streams import MultiStreamRunner
 
@@ -1189,9 +1140,9 @@ def live_reid_phases(osblock_build, card):
                     f"cosine {cos16:.6f} (plain bf16) {cos32:.6f} (f32)"]
             for dt, w, xx in ((torch.float32, w32, x),
                               (torch.bfloat16, w16, xb)):
-                k_ms = cuda_ms(lambda: osblock.osblock_fused(w, xx), 3)
-                p_ms = cuda_ms(lambda: osblock.osblock_reference(
-                    trees[dt], name, xx, w.cout), 1)
+                k_ms = call_ms(lambda: osblock.osblock_fused(w, xx), 3)[0]
+                p_ms = call_ms(lambda: osblock.osblock_reference(
+                    trees[dt], name, xx, w.cout), 1)[0]
                 b_ms, by = osblock_bound_ms(w, BLOCK_CHECK_B, H, W, dt)
                 line.append(f"{str(dt)[6:]} kernel {k_ms:.3f} ms plain "
                             f"{p_ms:.3f} ms bound {b_ms:.4f} ms ({by})")
@@ -1211,9 +1162,8 @@ def live_reid_phases(osblock_build, card):
         last[:] = [e]
         return e
 
-    cfg = BotSortConfig(with_reid=True, emb_dim=LIVE_D, max_tracks=LIVE_K,
-                        max_dets=LIVE_N, lap_impl="auction_pallas")
-    init, step = make_botsort(cfg, device="cuda")
+    make_live = scoreboard("botsort", live=True)
+    init, step = make_live("auction_pallas")
     dets_np, masks_np = synth_stream_dets(np.random.default_rng(0), EQUAL_T,
                                           LIVE_S, LIVE_N, n_obj=LIVE_OBJ)
     dets_all = torch.from_numpy(dets_np).cuda()
@@ -1271,11 +1221,8 @@ def live_reid_phases(osblock_build, card):
         print(f"phase 8 float32 embeddings of {flat.shape[0]} crops, fused "
               f"(kernel) vs folded (plain): min cosine {cos:.7f}")
 
-    n_eq = auction_paths_equal(
-        "BoT-SORT", lambda lap: make_botsort(BotSortConfig(
-            with_reid=True, emb_dim=LIVE_D, max_tracks=LIVE_K,
-            max_dets=LIVE_N, lap_impl=lap), device="cuda"),
-        embed, dets_all, masks_all, crops_all)
+    n_eq = auction_paths_equal("BoT-SORT", make_live, embed, dets_all,
+                               masks_all, crops_all)
     print(f"phase 8 BoT-SORT auction kernel = plain auction on {LIVE_S} "
           f"streams x {EQUAL_T} frames of the same embeddings: identical "
           f"({n_eq} emissions)")
@@ -1421,10 +1368,6 @@ def live_ecc_phase(phase, card):
     from torch.profiler import record_function
 
     from motcpp_tpu_torch.data import pan_frames, synth_stream_dets
-    from motcpp_tpu_torch.models.strongsort import (
-        StrongSortConfig,
-        make_strongsort,
-    )
     from motcpp_tpu_torch.motion.cmc import ecc_jax_batch
     from motcpp_tpu_torch.ops import auction_cuda
     from motcpp_tpu_torch.parallel.streams import MultiStreamRunner
@@ -1440,7 +1383,7 @@ def live_ecc_phase(phase, card):
     check(bool(ok.all()), f"ECC failed on {int((~ok).sum())} streams")
     check(err_x <= 1e-3 and err_y <= 1e-3, f"ECC warps miss the pans by "
           f"{err_x:.2e} px in x, {err_y:.2e} px in y (> 1e-3)")
-    ecc_ms = cuda_ms(lambda: ecc_jax_batch(frames[0], frames[1]), 5)
+    ecc_ms = call_ms(lambda: ecc_jax_batch(frames[0], frames[1]), 5)[0]
     ecc_bound = 2 * frames[0].numel() * 4 / HBM_BYTES_PER_S * 1e3
     print(f"phase {phase} ECC on one frame pair, S={CMC_S} "
           f"{tuple(frames.shape[2:])}: warps x = -pan within {err_x:.2e} px,"
@@ -1453,11 +1396,7 @@ def live_ecc_phase(phase, card):
         with record_function("ecc"):
             return ecc_jax_batch(prev, cur)
 
-    def make(lap):
-        return make_strongsort(StrongSortConfig(
-            n_init=1, gallery_cap=16, max_tracks=K, max_dets=N,
-            lap_impl=lap), device="cuda")
-
+    make = scoreboard("strongsort")
     init, step = make("auction_pallas")
     dets_np, masks_np = synth_stream_dets(np.random.default_rng(0), T,
                                           CMC_S, N, n_obj=N_OBJ)
@@ -1653,8 +1592,8 @@ def profile_tick(svc, submit):
         return report
     staged = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
               for t in sent]
-    h2d_us = 1e3 * cuda_ms(
-        lambda: [b.to("cuda", non_blocking=True) for b in staged], 5)
+    h2d_us = 1e3 * call_ms(
+        lambda: [b.to("cuda", non_blocking=True) for b in staged], 5)[0]
     nbytes = sum(t.numel() * t.element_size() for t in sent)
     busy += h2d_us
     return (f"{report}; the trace names no copy to the card, so the tick's "
@@ -1702,11 +1641,6 @@ def serving_phase(phase, card, mux_build, runner_ms, live_runner_ms, model):
     from motcpp_tpu_torch.appearance import osblock_cuda
     from motcpp_tpu_torch.appearance.reid import make_embed_fn
     from motcpp_tpu_torch.data import pack_valid_rows, synth_stream_dets
-    from motcpp_tpu_torch.models.botsort import BotSortConfig, make_botsort
-    from motcpp_tpu_torch.models.bytetrack import (
-        ByteTrackConfig,
-        make_bytetrack,
-    )
     from motcpp_tpu_torch.ops import auction_cuda
     from motcpp_tpu_torch.parallel.streams import MultiStreamRunner
     from motcpp_tpu_torch.serving import StreamMux, TrackingService
@@ -1726,8 +1660,7 @@ def serving_phase(phase, card, mux_build, runner_ms, live_runner_ms, model):
     dets, masks, _ = pack_valid_rows(*synth_stream_dets(
         np.random.default_rng(0), T + 2, S, N, n_obj=N_OBJ))
     counts = masks.sum(-1)
-    init, step = make_bytetrack(ByteTrackConfig(
-        max_tracks=K, max_dets=N, lap_impl="auction_pallas"), device="cuda")
+    init, step = scoreboard("bytetrack")("auction_pallas")
     svc = service("bytetrack", S, max_dets=N, tracker_kw=dict(
         max_tracks=K, lap_impl="auction_pallas"))
     hs = [svc.attach() for _ in range(S)]
@@ -1773,9 +1706,7 @@ def serving_phase(phase, card, mux_build, runner_ms, live_runner_ms, model):
     crops_host = crops0.cpu().numpy()
     embed = make_embed_fn(model, compute_dtype="bfloat16", fused=True,
                           device="cuda")
-    init, step = make_botsort(BotSortConfig(
-        with_reid=True, emb_dim=LIVE_D, max_tracks=LIVE_K, max_dets=LIVE_N,
-        lap_impl="auction_pallas"), device="cuda")
+    init, step = scoreboard("botsort", live=True)("auction_pallas")
     svc = service("botsort", LIVE_S, max_dets=LIVE_N, emb_dim=LIVE_D,
                   tracker_kw=dict(with_reid=True, max_tracks=LIVE_K,
                                   lap_impl="auction_pallas"),
@@ -2337,14 +2268,6 @@ def sharded_phase(phase, card, byte, live, hybrid, served_live, scene):
     from motcpp_tpu_torch.appearance import osblock_cuda
     from motcpp_tpu_torch.appearance.reid import make_embed_fn
     from motcpp_tpu_torch.data import pack_valid_rows, synth_stream_dets
-    from motcpp_tpu_torch.models.bytetrack import (
-        ByteTrackConfig,
-        make_bytetrack,
-    )
-    from motcpp_tpu_torch.models.hybridsort import (
-        HybridSortConfig,
-        make_hybridsort,
-    )
     from motcpp_tpu_torch.ops import auction_cuda
     from motcpp_tpu_torch.parallel import (
         Mesh,
@@ -2364,8 +2287,7 @@ def sharded_phase(phase, card, byte, live, hybrid, served_live, scene):
 
     # ---- (a) the ByteTrack flagship over the shards ------------------------
     dets, masks = byte["inputs"]
-    init, step = make_bytetrack(ByteTrackConfig(
-        max_tracks=K, max_dets=N, lap_impl="auction_pallas"), device="cuda")
+    init, step = scoreboard("bytetrack")("auction_pallas")
     runner = MultiStreamRunner(init, step, S, devices=devices)
     for m in counters:
         m.LAUNCHES = 0
@@ -2461,10 +2383,7 @@ def sharded_phase(phase, card, byte, live, hybrid, served_live, scene):
 
     # ---- (d) HybridSORT live at a priority budget -------------------------
     def make():
-        return make_hybridsort(HybridSortConfig(
-            emb_dim=LIVE_D, max_tracks=LIVE_K, max_dets=LIVE_N,
-            lap_impl="auction_pallas", min_hits=1, with_reid=True),
-            device="cuda")
+        return scoreboard("hybridsort", live=True)("auction_pallas")
 
     model_embed = make_embed_fn(live["model"], compute_dtype="bfloat16",
                                 fused=True, device="cuda")
@@ -2556,57 +2475,33 @@ def sharded_phase(phase, card, byte, live, hybrid, served_live, scene):
 
 
 def profile_split(fn, patches):
-    """torch.profiler over one call of ``fn()``, after one untimed call,
-    with each (module, attribute, label) of ``patches`` wrapped in a
-    record_function range: the wall under the profiler, the kernels'
-    device time and count, and each label's share, the kernels that
-    start inside one of its ranges' device spans."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
-
-    saved = []
+    """utils/profiling.py's device_split of ``fn()`` with each (module,
+    attribute, label) of ``patches`` wrapped in a record_function range,
+    as a line: the wall under the profiler, the kernels' device time and
+    count, and each label's share, the kernels that start inside one of
+    its ranges' device spans."""
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in patches]
     for mod, attr, label in patches:
-        f = getattr(mod, attr)
-
-        def wrapped(*a, f=f, label=label, **kw):
-            with record_function(label):
-                return f(*a, **kw)
-
-        saved.append((mod, attr, f))
-        setattr(mod, attr, wrapped)
+        setattr(mod, attr, ranged(getattr(mod, attr), label))
     try:
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
+        split = device_split(fn, [label for _, _, label in patches])
+    except RuntimeError as exc:
+        return f"{exc}: split not measured"
     finally:
         for mod, attr, f in saved:
             setattr(mod, attr, f)
-    labels = [label for _, _, label in patches]
-    on_device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    kernels = [e for e in on_device if e.name not in labels]
-    device_us = sum(e.time_range.elapsed_us() for e in kernels)
-    if not device_us:
-        return "profiler recorded no device time: split not measured"
-    parts = [f"wall {wall_us / 1e3:.3f} ms under the profiler, kernels "
-             f"{device_us / 1e3:.3f} ms ({len(kernels)})"]
+    device_ms = split["device_ms"]
+    parts = [f"wall {split['wall_ms']:.3f} ms under the profiler, kernels "
+             f"{device_ms:.3f} ms ({split['kernels']})"]
     inside = 0.0
-    for label in labels:
-        spans = [e.time_range for e in on_device if e.name == label]
-        us = sum(e.time_range.elapsed_us() for e in kernels
-                 if any(sp.start <= e.time_range.start < sp.end
-                        for sp in spans))
-        inside += us
-        parts.append(f"{label} {us / 1e3:.3f} ms "
-                     f"({100 * us / device_us:.1f}%)"
-                     + ("" if spans else " (no device span)"))
-    rest = device_us - inside
+    for label, ms in split["labels"].items():
+        inside += ms or 0.0
+        parts.append(f"{label} {ms or 0.0:.3f} ms "
+                     f"({100 * (ms or 0.0) / device_ms:.1f}%)"
+                     + ("" if ms is not None else " (no device span)"))
+    rest = device_ms - inside
     parts.append(f"the rest (preprocessing, gates, pools, residuals, "
-                 f"norm) {rest / 1e3:.3f} ms ({100 * rest / device_us:.1f}%)")
+                 f"norm) {rest:.3f} ms ({100 * rest / device_ms:.1f}%)")
     return "; ".join(parts)
 
 
@@ -2740,7 +2635,7 @@ def int8_phase(phase, card, live, served_live, scene):
               and bool(((got.norm(dim=1) - 1).abs() < 1e-3).all()),
               f"int8 embed of {B} crops: not finite unit-norm rows")
         reps = 5 if B <= per_cadence else 1
-        ms = {label: cuda_ms(lambda fn=fn: fn(x), reps) for label, fn in (
+        ms = {label: call_ms(lambda fn=fn: fn(x), reps)[0] for label, fn in (
             ("int8", embed), ("bf16 fused", fused), ("bf16 folded", folded))}
         cos = crop_cosine(got, fused(x))
         print(f"phase {phase} (b) int8 embed of {B} crops: torch._int_mm = "
@@ -2892,9 +2787,9 @@ def int8_phase(phase, card, live, served_live, scene):
         rel = err / float(ref.abs().max())
         check(bool(torch.isfinite(dense).all()) and rel <= 1e-4,
               f"dense-lite vs folded float32: relative error {rel:.2e} > 1e-4")
-        dense_ms = cuda_ms(lambda: quant._forward_folded_dense(composed, xf),
-                           2)
-        folded_ms = cuda_ms(lambda: quant.forward_folded_f32(tree, xf), 2)
+        dense_ms = call_ms(lambda: quant._forward_folded_dense(composed, xf),
+                           2)[0]
+        folded_ms = call_ms(lambda: quant.forward_folded_f32(tree, xf), 2)[0]
     print(f"phase {phase} (e) dense-lite (compose_lite_dense, "
           f"_forward_folded_dense) vs forward_folded_f32 on {per_cadence} "
           f"crops, TF32 off: max abs err {err:.3g}, relative {rel:.3g}; "
@@ -3111,6 +3006,121 @@ def serving_tail_phase(phase, card):
     print(f"phase {phase} wall time {time.perf_counter() - t_phase:.1f} s: "
           f"(a) and (b) {harness_s:.1f} s, the sweep {sweep_s:.1f} s")
     return {"auction_launches": launches, "auction_err": max_err}
+
+
+def attribution_phase(phase, card, block_ms):
+    """Phase ``phase``: the time-attribution tools of
+    ``motcpp_tpu_torch/scripts/``, in process, on the card. (a)
+    profile_osnet at PROFILE_CROPS crops of osnet_x1_0, bf16, 256x128,
+    ``--fused --roofline``: the fused forward's per-crop cosine to the
+    module forward in float32 (TF32 off), each piece alone in bf16 to
+    float32 and fused to module, and each OSBlock kernel row's cosine to
+    its plain version at least 0.999, and the six kernel block rows
+    within 20% of ``block_ms``, phase 7's six-block kernel time; (b)
+    profile_stages at S streams, every stage: the kernel's row2col and
+    col2row equal to the plain auction's; (c) ablate_cost on
+    ABLATE_TRACKERS at OC_S streams, ABLATE_T frames, ablating the LAP and
+    the IoU: every ablated stub called, and the device split of the
+    unstubbed rollout measured with the LAP's kernels in it; (d)
+    microbench_select at SELECT_STREAMS streams: every case exact.
+    Returns both kernels' launches in the tools' measured runs (their
+    warm-up calls and comparison launches are not counted) and their
+    largest differences from their plain versions."""
+    from motcpp_tpu_torch.appearance import osblock_cuda
+    from motcpp_tpu_torch.ops import auction_cuda
+    from motcpp_tpu_torch.scripts import (
+        ablate_cost,
+        microbench_select,
+        profile_osnet,
+        profile_stages,
+    )
+
+    t_phase = time.perf_counter()
+    counters = (osblock_cuda, auction_cuda)
+    for m in counters:
+        m.LAUNCHES = 0
+    split = {}
+
+    # (a) the per-piece OSNet profile
+    print(f"phase {phase} (a) profile_osnet, osnet_x1_0 {PROFILE_CROPS} "
+          f"crops bf16; card: {card}", flush=True)
+    t0 = time.perf_counter()
+    osnet = profile_osnet.profile(profile_osnet.parser().parse_args(
+        ["--batch", str(PROFILE_CROPS), "--dtype", "bfloat16", "--hw",
+         *map(str, CROP_HW), "--fused",
+         "--roofline", "--repeats", str(PROFILE_REPEATS)]))
+    cos32 = osnet["cosine_f32"][0]
+    check(cos32 >= 0.999, f"(a) fused vs module forward in float32: min "
+          f"cosine {cos32:.6f} < 0.999")
+    for r in osnet["pieces_precision"]:
+        low = min(r["module"], r["fused"], r["fused_module"])
+        check(low >= 0.999, f"(a) {r['name']} alone in bf16: min cosine "
+              f"{low:.6f} < 0.999 (module {r['module']:.6f}, fused "
+              f"{r['fused']:.6f} to float32, fused to module "
+              f"{r['fused_module']:.6f})")
+    blocks = [r for r in osnet["fused_rows"]
+              if r["name"] in profile_osnet.BLOCKS]
+    for r in blocks:
+        check(r["cosine"] >= 0.999, f"(a) {r['name']}: the kernel's min "
+              f"cosine to its plain version {r['cosine']:.6f} < 0.999")
+    k_ms = sum(r["ms"] for r in blocks)
+    check(len(blocks) == 6 and abs(k_ms / block_ms - 1) <= 0.2,
+          f"(a) the six kernel block rows {k_ms:.3f} ms, phase 7's six "
+          f"blocks {block_ms:.3f} ms: not within 20%")
+    split["a"] = time.perf_counter() - t0
+    to32 = osnet["cosine_to_f32"]
+    low = min(min(r["module"], r["fused"], r["fused_module"])
+              for r in osnet["pieces_precision"])
+    print(f"phase {phase} (a) min cosine of the fused to the module forward: "
+          f"float32 {cos32:.7f} (held), bf16 {osnet['cosine'][0]:.5f}; of "
+          f"the bf16 forwards to float32: module {to32['module'][0]:.5f}, "
+          f"fused {to32['fused'][0]:.5f} (printed: rounding grown through "
+          f"depth); each piece alone in bf16, to float32 and fused to "
+          f"module, {low:.6f} at least (held); the six kernel block rows "
+          f"{k_ms:.3f} ms = {k_ms / block_ms:.3f}x phase 7's "
+          f"{block_ms:.3f} ms; {split['a']:.1f} s", flush=True)
+
+    # (b) the stage microbenchmarks
+    t0 = time.perf_counter()
+    stages = profile_stages.measure(profile_stages.parser().parse_args(
+        ["--streams", str(S), "--iters", str(STAGE_ITERS), "--stages",
+         *profile_stages.STAGES]))
+    check(stages["pallas_equal"], "(b) the auction kernel's row2col and "
+          "col2row differ from the plain auction's")
+    split["b"] = time.perf_counter() - t0
+
+    # (c) the stage ablation
+    t0 = time.perf_counter()
+    for tracker in ABLATE_TRACKERS:
+        ablated = ablate_cost.ablate(ablate_cost.parser().parse_args(
+            ["--tracker", tracker, "--streams", str(OC_S), "--frames",
+             str(ABLATE_T), "--repeats", str(ABLATE_REPEATS)]))
+        calls, shares = ablated["calls"], ablated["split"]
+        check(set(calls) == {"lap", "iou"} and all(calls.values()),
+              f"(c) {tracker}: ablated stubs called {calls}")
+        check(shares is not None and (shares["stages"]["lap"][0] or 0) > 0,
+              f"(c) {tracker}: no device time inside the LAP's ranges")
+    split["c"] = time.perf_counter() - t0
+
+    # (d) the select microbench
+    t0 = time.perf_counter()
+    select = microbench_select.measure(microbench_select.parser().parse_args(
+        ["--streams", str(SELECT_STREAMS), "--repeats", str(SELECT_REPEATS)]))
+    inexact = [r[0] for r in select["rows"] if not r[3]]
+    check(not inexact, f"(d) cases not exact: {inexact}")
+    split["d"] = time.perf_counter() - t0
+
+    launches = {m: m.LAUNCHES for m in counters}
+    check(all(launches.values()), f"phase {phase} launched a kernel no "
+          f"time: {[m.__name__ for m in counters if not launches[m]]}")
+    print(f"phase {phase} wall time {time.perf_counter() - t_phase:.1f} s: "
+          + ", ".join(f"({k}) {v:.1f}" for k, v in split.items())
+          + f"; launches: auction {launches[auction_cuda]}, OSBlock "
+          f"{launches[osblock_cuda]}; card: {card}", flush=True)
+    return {"auction_launches": launches[auction_cuda],
+            "osblock_launches": launches[osblock_cuda],
+            "auction_err": 0,
+            "osblock_err": max(r["max_abs_err"] for r in blocks)}
 
 
 def main(argv=None):

@@ -162,8 +162,43 @@ def pack_blocks(folded: dict, dtype) -> dict:
     return {name: block_weights(folded, name, dtype) for name in BLOCKS}
 
 
+def fused_pieces(folded: dict, packed: dict) -> list:
+    """:func:`forward_fused`'s sequential pieces in order, as ``(name,
+    fn)``: conv1 7x7/2, the 3x3/2 max pool, each OSBlock through
+    :func:`osblock_fused`, the two transitions (1x1 conv, 2x2 average
+    pool), conv5 with its spatial mean, and the ``fc_0`` head. Chained on
+    x (B, H, W, 3), they are the forward; ``scripts/profile_osnet.py``
+    times each alone. ``packed`` is :func:`pack_blocks` of ``folded``."""
+
+    def conv(name, v, strides=(1, 1), padding=0):
+        leaf = folded[name]
+        return torch.relu(_conv(v, leaf["kernel"], leaf["bias"], strides,
+                                padding))
+
+    def block(name):
+        return name, lambda v: osblock_fused(packed[name], v)
+
+    def transition(name):
+        return name, lambda v: avg_pool_2x2(conv(name, v))
+
+    def head(v):
+        leaf = folded["fc_0"]
+        return torch.relu(v @ leaf["kernel"].float() + leaf["bias"].float())
+
+    return [
+        ("conv1", lambda v: conv("conv1", v, strides=(2, 2), padding=3)),
+        ("maxpool", max_pool_3x3_s2),
+        block("conv2_0"), block("conv2_1"), transition("conv2_2_0"),
+        block("conv3_0"), block("conv3_1"), transition("conv3_2_0"),
+        block("conv4_0"), block("conv4_1"),
+        ("conv5", lambda v: conv("conv5", v).float().mean(dim=(1, 2))),
+        ("fc_0", head),
+    ]
+
+
 def forward_fused(folded: dict, x: torch.Tensor, packed: dict | None = None):
-    """OSNet forward with every OSBlock through :func:`osblock_fused`.
+    """OSNet forward with every OSBlock through :func:`osblock_fused`:
+    :func:`fused_pieces` chained.
 
     folded: a fold_osnet tree (on x's device); x: (B, H, W, 3), compute
     dtype = x.dtype; packed: :func:`pack_blocks` of the tree in that
@@ -171,18 +206,6 @@ def forward_fused(folded: dict, x: torch.Tensor, packed: dict | None = None):
     """
     if packed is None:
         packed = pack_blocks(folded, x.dtype)
-
-    def conv(name, v, strides=(1, 1), padding=0):
-        leaf = folded[name]
-        return torch.relu(_conv(v, leaf["kernel"], leaf["bias"], strides,
-                                padding))
-
-    x = max_pool_3x3_s2(conv("conv1", x, strides=(2, 2), padding=3))
-    x = osblock_fused(packed["conv2_1"], osblock_fused(packed["conv2_0"], x))
-    x = avg_pool_2x2(conv("conv2_2_0", x))
-    x = osblock_fused(packed["conv3_1"], osblock_fused(packed["conv3_0"], x))
-    x = avg_pool_2x2(conv("conv3_2_0", x))
-    x = osblock_fused(packed["conv4_1"], osblock_fused(packed["conv4_0"], x))
-    x = conv("conv5", x).float().mean(dim=(1, 2))
-    head = folded["fc_0"]
-    return torch.relu(x @ head["kernel"].float() + head["bias"].float())
+    for _, piece in fused_pieces(folded, packed):
+        x = piece(x)
+    return x

@@ -1,6 +1,7 @@
-"""The port stands alone: no module of motcpp_tpu_torch, and not
-chip_smoke.py, imports jax or motcpp_tpu, and entry points called
-without a device never run on the CPU where no CUDA device exists."""
+"""The port stands alone: no module of motcpp_tpu_torch (its scripts
+among them), and not chip_smoke.py, imports jax, motcpp_tpu, bench.py or
+the JAX package's scripts, and entry points called without a device
+never run on the CPU where no CUDA device exists."""
 
 import ast
 import subprocess
@@ -17,7 +18,7 @@ ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "motcpp_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"
 ]
-FORBIDDEN = ("jax", "jaxlib", "motcpp_tpu")
+FORBIDDEN = ("jax", "jaxlib", "motcpp_tpu", "bench", "scripts")
 
 
 def imported_roots(path):
@@ -214,6 +215,34 @@ def test_serving_harness_entry_points_default_to_cuda_and_raise_without_it(
     with pytest.raises(RuntimeError, match="no CUDA device"):
         slo_sweep.main(["--tracker", "botsort", "--out", str(out)])
     assert not out.exists()
+
+
+def test_attribution_tools_default_to_cuda_and_raise_without_it(no_cuda):
+    """The time-attribution tools and the tracker builder are in the
+    isolation checks' scope, run on the card and, without --cpu (or a
+    device), raise where there is none."""
+    from motcpp_tpu_torch.scripts import (
+        ablate_cost,
+        microbench_select,
+        profile_osnet,
+        profile_stages,
+        tracker_fns,
+    )
+
+    scripts = {p.name for p in PORT_FILES if p.parent.name == "scripts"}
+    assert {"ablate_cost.py", "microbench_select.py", "profile_osnet.py",
+            "profile_stages.py", "tracker_fns.py"} <= scripts
+    for main, argv in (
+            (profile_osnet.main, ["--batch", "2"]),
+            (profile_stages.main, ["--streams", "2", "--iters", "1"]),
+            (ablate_cost.main, ["--tracker", "bytetrack", "--streams", "2"]),
+            (microbench_select.main, ["--streams", "2"])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main(argv)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tracker_fns.build_tracker_fns("bytetrack")
+    init, step = tracker_fns.build_tracker_fns("bytetrack", device="cpu")
+    assert init(2) is not None
 
 
 @pytest.mark.parametrize("path", PORT_FILES,

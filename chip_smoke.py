@@ -14,8 +14,9 @@ emission collectives and a two-process dryrun), int8 and dense-lite
 ReID (live BoT-SORT through the int8 embed and the auction kernel),
 the serving tail-latency harness and the SLO sweep, and the
 time-attribution tools (the per-piece OSNet profile, the stage
-microbenchmarks, the stage ablation and the select microbench), and
-checks what they emit. The trackers are built at the scoreboard's
+microbenchmarks, the stage ablation and the select microbench), the
+long-horizon streaming tool, oriented-box SORT and the live sparse-flow
+leg, and checks what they emit. The trackers are built at the scoreboard's
 configurations by ``motcpp_tpu_torch/scripts/tracker_fns.py``.
 
     python3 chip_smoke.py [--baseline OTHER_AUCTION_CU]
@@ -42,7 +43,7 @@ timings, so those compare float32 arithmetic. Phases:
      256, a problem that hits MAX_ROUNDS): identical row2col/col2row;
   3. the ByteTrack main path: MultiStreamRunner over ByteTrack with the
      kernel (lap_impl="auction_pallas"), S=4096 streams, K=64 slots,
-     N=32 dets, 16 objects, T=60 frames; one warm-up and 5 timed
+     N=32 dets, 16 objects, T=60 frames; one warm-up and 3 timed
      run()s, each launching the kernel exactly 2*T times; then the
      kernel timed on the inputs the main path gave it (stage 1 and
      stages 2+3), beside its plain version and its bound, and a
@@ -62,7 +63,7 @@ timings, so those compare float32 arithmetic. Phases:
      make_embed_fn(osnet_x1_0, bfloat16, fused=True) as embed_fn, S=128
      streams, N=16 crops of 256x128 uint8 made on the card, K=64, 14
      objects, T=4; every frame, then BoT-SORT's deployed cadence 8; one
-     warm-up and 5 timed run()s each, with the kernels' launch counts
+     warm-up and 3 timed run()s each, with the kernels' launch counts
      checked; then the OSBlock kernel on the inputs the main path gave
      each block, and a torch.profiler trace of one frame;
   8. kernel path against plain path: fused and plain folded embeddings
@@ -225,13 +226,41 @@ timings, so those compare float32 arithmetic. Phases:
      the IoU stubbed: each stub called, and one unstubbed rollout split
      by device time with kernels inside the LAP's ranges; (d)
      microbench_select at S=2048: every case exact. The tools' warm-up
-     calls and comparison launches are not counted.
+     calls and comparison launches are not counted;
+ 23. long-horizon streaming (motcpp_tpu_torch/scripts/longrun_stability.py,
+     in process, its scene made on the card chunk by chunk): (a) its
+     defaults, ByteTrack at S=256, K=64, N=32 over 10000 frames in
+     chunks of 500, every emitted row finite, ms per frame-batch of
+     each chunk, the largest emitted id and next_id; (b) OC-SORT over
+     LONG_OC_FRAMES frames (its observation ring wraps); (c) (a)'s
+     first LONG_EQUAL_CHUNKS chunks again as one run(): masks, ids,
+     boxes and the carried state equal bit for bit; (d) the kernel on
+     the solves of (a)'s last frame held to the plain auction (max abs
+     err 0) beside its bound; (e) two launches a frame in (a) and (b);
+     and a profile of 10 frames of each path (kernels a frame, busy
+     share);
+ 24. oriented-box SORT (is_obb, min_hits=1, max_age=3) at S=2048, K=64,
+     N=32, OBB_T frames (data/synthetic.py::obb_stream_dets): one
+     warm-up and 3 timed runs, the peak device memory, the kernel on the path's
+     inputs beside its bound, a profile of 10 frames (kernels a frame,
+     busy share, iou_batch_obb's share of the device time), the kernel
+     path against the plain path on 256 streams (identical) and the card
+     against the CPU on 8 streams (masks and ids identical, boxes within
+     1e-3 px); then bench.py's --cmc sof leg: StrongSORT (n_init=1,
+     gallery_cap=16) under cmc_fn=sof_jax_batch at CMC scale 0.15,
+     S=512, SOF_T frames of 162x288 panning textures made on the card:
+     the warps of one pair against the known pans (within 0.05 px, ok
+     everywhere), sof_jax_batch's device time on one pair, one warm-up
+     and 3 timed runs, a profile of 3 frames, two run() calls against
+     one (identical), the card
+     against the CPU on 8 streams (masks and ids identical, boxes within
+     1e-2 px) and a run without camera motion, which must differ.
 
 Any failed check exits nonzero before the result is printed. The last
 line is ``{"ok": true, "device": {...}}``; the line before it is the
 card's name and power limit, and the one before that lists the kernels
 with their times and bounds (those of phases 3 and 7) and their
-launches summed over the main paths of phases 3, 7 and 9-22, each
+launches summed over the main paths of phases 3, 7 and 9-24, each
 counted from zero; before those, the script's wall time.
 """
 
@@ -267,9 +296,11 @@ from motcpp_tpu_torch.utils.profiling import (  # noqa: E402
     exact_float32,
     osblock_bound_ms,
     ranged,
+    same_bits,
 )
 
-S, K, N, N_OBJ, T, REPEATS = 4096, 64, 32, 16, 60, 5
+# REPEATS timed runs a path (5 until the script outgrew 900 s)
+S, K, N, N_OBJ, T, REPEATS = 4096, 64, 32, 16, 60, 3
 CHECK_SHAPES = [(64, 32, 4096), (128, 64, 1024), (128, 128, 1024),
                 (256, 128, 256), (64, 16, 256)]
 # ms of the previous auction kernel (one CTA of 256 threads per problem,
@@ -318,9 +349,9 @@ CLI_TRACKERS = ("sort", "bytetrack", "ocsort", "strongsort", "botsort")
 TUNE_FRAMES = 8  # scripts/tune.py's default: the bundled GT spans 8 frames
 FAILOVER_TICKS = 20  # the flagship failover's ticks, cut in the middle
 # phase 21: timed ticks of each harness run and sweep point (the JAX
-# package's scripts time 200 and 300), and (b)'s ticks held against the
-# native mux
-SLO_TICKS, RING_EQUAL_TICKS = 100, 4
+# package's scripts time 200 and 300; 100 until the script outgrew 900
+# s), and (b)'s ticks held against the native mux
+SLO_TICKS, RING_EQUAL_TICKS = 60, 4
 # phase 22: profile_osnet's crops and model (phase 7's widths), its timed
 # calls a piece; profile_stages' calls a stage; ablate_cost's trackers,
 # streams and frames and its timed rollouts; microbench_select's streams
@@ -329,6 +360,23 @@ PROFILE_CROPS, PROFILE_REPEATS = 2048, 3
 STAGE_ITERS = 3
 ABLATE_TRACKERS, ABLATE_T, ABLATE_REPEATS = ("bytetrack", "boosttrack"), 30, 2
 SELECT_STREAMS, SELECT_REPEATS = 2048, 20
+# phase 23: the long-horizon script's defaults (ByteTrack), OC-SORT's
+# frames, and the leading chunks run again as one run(); cut from 2000
+# frames and 4 chunks to keep the script within 900 s (on an H100 at
+# 700 W the defaults' run alone takes 100-145 s: ByteTrack at 8-16 ms a
+# frame-batch, host-bound, with chunks up to 53 ms)
+LONG_OC_FRAMES, LONG_EQUAL_CHUNKS = 500, 2
+# phase 24: oriented-box SORT (streams, frames, timed runs, streams run
+# on the host as well) and the live sparse-flow leg (frames, timed runs,
+# streams and frames run on the host as well), their frames cut from 60
+# and 30 (an H100 at 700 W takes 71 ms a frame-batch and 516 ms, of them
+# 529 ms a frame pair in sof_jax_batch at S=512); the warps' tolerance to
+# the pans is tests/test_torch_cmc.py's for sof_jax_batch, the boxes'
+# to the host's those of the CPU tests against JAX (tests/test_torch_sort.py,
+# tests/test_torch_ecc.py)
+OBB_S, OBB_T, OBB_REPEATS, OBB_HOST_S, OBB_BOX_ATOL = 2048, 30, 3, 8, 1e-3
+SOF_T, SOF_REPEATS, SOF_HOST_S, SOF_HOST_T = 6, 3, 8, 6
+SOF_PAN_ATOL, SOF_BOX_ATOL = 0.05, 1e-2
 # auction launches of one tick of each tracker's step at the harness's
 # configurations (PERF.md section 3)
 STEP_LAUNCHES = {"bytetrack": 2, "botsort": 2, "strongsort": 2,
@@ -640,6 +688,12 @@ def run_smoke(baseline=None):
     #      stage microbenchmarks, the stage ablation, the select microbench
     tools = attribution_phase(22, smi, live["osblock"]["ms"])
 
+    # ---- 23. long-horizon streaming: the long-run script ---------------
+    longrun = long_horizon_phase(23, smi)
+
+    # ---- 24. oriented-box SORT and the live sparse-flow leg --------------
+    obb_sof = obb_sof_phase(24, smi)
+
     motion = [p for name, p in paths.items() if not name.endswith("live")]
     live_paths = [p for name, p in paths.items() if name.endswith("live")]
     kernels = [{
@@ -653,10 +707,13 @@ def run_smoke(baseline=None):
                      + sharded["auction_launches"]
                      + quantized["auction_launches"]
                      + tail["auction_launches"]
-                     + tools["auction_launches"]),
+                     + tools["auction_launches"]
+                     + longrun["auction_launches"]
+                     + obb_sof["auction_launches"]),
         "max_abs_err": max([max_err, sharded["auction_err"],
                             quantized["auction_err"], tail["auction_err"],
-                            tools["auction_err"]]
+                            tools["auction_err"], longrun["auction_err"],
+                            obb_sof["auction_err"]]
                            + [p["auction_err"] for p in motion]
                            + [p["auction"]["auction_err"] for p in live_paths
                               if "auction" in p]),
@@ -704,6 +761,10 @@ def run_smoke(baseline=None):
           f"{tail['auction_launches']}")
     print(f"launches on phase 22's tools: auction {tools['auction_launches']}"
           f", OSBlock {tools['osblock_launches']}")
+    print(f"launches on phase 23's long runs: auction "
+          f"{longrun['auction_launches']}")
+    print(f"launches on phase 24's OBB SORT and live SOF paths: auction "
+          f"{obb_sof['auction_launches']}")
     return kernels, smi
 
 
@@ -805,7 +866,7 @@ def auction_on_path(phase, label, stage_names, run_frame, card,
     each timed beside the plain auction and its bound; returns the
     per-frame sums and the largest difference from the plain auction
     (which must be 0). ``previous`` is as in ``tracker_path``."""
-    from motcpp_tpu_torch.ops import auction, auction_cuda
+    from motcpp_tpu_torch.ops import auction_cuda
 
     captured = []
     solve = auction_cuda.solve
@@ -819,6 +880,18 @@ def auction_on_path(phase, label, stage_names, run_frame, card,
         run_frame()
     finally:
         auction_cuda.solve = solve
+    return solves_on_path(phase, label, stage_names, captured, card,
+                          previous)
+
+
+def solves_on_path(phase, label, stage_names, captured, card,
+                   previous=None):
+    """The auction kernel on one frame's captured solves (one per stage
+    name), each held to the plain auction (max abs err 0) and timed
+    beside it and its bound; returns as :func:`auction_on_path`."""
+    from motcpp_tpu_torch.ops import auction, auction_cuda
+
+    solve = auction_cuda.solve
     check(len(captured) == len(stage_names),
           f"{label}: captured {len(captured)} solves, want {len(stage_names)}")
     k_ms = p_ms = b_ms = 0.0
@@ -885,23 +958,26 @@ def x1_block_inputs(gen):
             for name, hw in shapes.items()}
 
 
-def timed_runs(runner, dets, masks, crops, counters, want):
-    """One warm-up and REPEATS timed run()s from a reset state; checks
-    each run's kernel launches against ``want`` ({module: count})."""
+def timed_runs(runner, dets, masks, counters, want, label, repeats=REPEATS,
+               **legs):
+    """One warm-up and ``repeats`` timed run()s of ``runner`` from a reset
+    state over dets, masks and the run() keywords ``legs``; checks each
+    run's kernel launches against ``want`` ({module: count}). Returns the
+    median seconds of a run, the run times and the last outputs."""
     times = []
-    for rep in range(1 + REPEATS):
+    for rep in range(1 + repeats):
         runner.reset()
         before = {m: m.LAUNCHES for m in counters}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        outs, out_masks = runner.run(dets, masks, embs=crops)
+        outs, out_masks = runner.run(dets, masks, **legs)
         torch.cuda.synchronize()
         if rep:
             times.append(time.perf_counter() - t0)
         for m in counters:
             got = m.LAUNCHES - before[m]
-            check(got == want[m], f"run {rep}: {got} {m.__name__} launches, "
-                  f"want {want[m]}")
+            check(got == want[m], f"{label} run {rep}: {got} {m.__name__} "
+                  f"launches, want {want[m]}")
     return float(np.median(times)), times, outs, out_masks
 
 
@@ -1184,8 +1260,8 @@ def live_reid_phases(osblock_build, card):
         if cadence is None:
             osblock_cuda.LAUNCHES = 0
             auction_cuda.LAUNCHES = 0
-        run_s, times, outs, out_masks = timed_runs(runner, dets, masks, crops,
-                                                   counters, want)
+        run_s, times, outs, out_masks = timed_runs(
+            runner, dets, masks, counters, want, label, embs=crops)
         if cadence is None:
             launches = {m: m.LAUNCHES for m in counters}
         emitted = check_live_outputs(label, last[0], outs, out_masks)
@@ -1300,7 +1376,8 @@ def live_tracker_phases(phase, name, make, stages, model, scene, card,
         for m in counters:
             m.LAUNCHES = 0
         run_s, times, outs, out_masks = timed_runs(
-            runner_for(embed_fn), dets, masks, crops, counters, want)
+            runner_for(embed_fn), dets, masks, counters, want,
+            f"{name} {label}", embs=crops)
         for m in counters:
             launches[m] += m.LAUNCHES
         emitted = check_live_outputs(f"{name} {label}", last[0], outs,
@@ -2180,40 +2257,33 @@ SHARDS = 2  # phase 19's shards, all on the one card
 SHARDED_REPEATS = 3  # timed runs of phase 19's paths, after one warm-up
 
 
-def sharded_runs(runner, legs, counters, want, label):
-    """One warm-up and SHARDED_REPEATS timed run()s of ``runner`` from a
-    reset state over ``legs`` (dets, masks[, crops]), each launching the
-    kernels of ``want`` ({module: count}) that many times; returns the
-    median ms per frame-batch, the run times and the last outputs."""
-    T_ = legs[0].shape[0]
-    times = []
-    for rep in range(1 + SHARDED_REPEATS):
-        runner.reset()
-        before = {m: m.LAUNCHES for m in counters}
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        outs, out_masks = runner.run(*legs[:2], **(
-            {"embs": legs[2]} if len(legs) > 2 else {}))
-        torch.cuda.synchronize()
-        if rep:
-            times.append(time.perf_counter() - t0)
-        for m in counters:
-            got = m.LAUNCHES - before[m]
-            check(got == want[m], f"{label} run {rep}: {got} {m.__name__} "
-                  f"launches, want {want[m]}")
-    return float(np.median(times)) * 1e3 / T_, times, outs, out_masks
+def first_difference(go, gm, wo, wm, id_col):
+    """(frame, stream) of the first emission mask or id that differs
+    between two rollouts' (T, S, K, C) outputs and (T, S, K) masks, the
+    ids in column ``id_col``; None where none differs."""
+    differs = (gm != wm) | (gm & wm & (go[..., id_col] != wo[..., id_col]))
+    where = differs.any(-1).nonzero()
+    return None if not len(where) else tuple(int(i) for i in where[0])
 
 
-def same_outputs(label, got, want):
-    """Identical masks, and the emitted rows (ids and boxes) bit for bit;
-    returns the emissions."""
-    (go, gm), (wo, wm) = got, want
-    check(torch.equal(gm, wm), f"{label}: masks differ from one device's in "
-          f"{int((gm != wm).sum())} slots")
-    check(torch.equal(go[gm], wo[wm]), f"{label}: emitted ids or boxes differ"
-          " from one device's")
-    check(int(gm.sum()) > 0, f"{label}: no emissions")
-    return int(gm.sum())
+def same_outputs(label, got, want, atol=0.0, boxes=slice(0, 4), id_col=4):
+    """Two rollouts' (outputs, masks), ``got`` moved to ``want``'s device:
+    identical masks and ids (column ``id_col``; the first differing
+    (frame, stream) named otherwise), and the emitted rows bit for bit,
+    or with ``atol`` the ``boxes`` columns within it. Returns the
+    emissions and the largest box difference."""
+    (go, gm), (wo, wm) = (tuple(t.to(want[0].device) for t in got), want)
+    where = first_difference(go, gm, wo, wm, id_col)
+    check(where is None, f"{label}: masks or ids differ, first at (frame, "
+          f"stream) {where}")
+    emitted = int(gm.sum())
+    check(emitted > 0, f"{label}: no emissions")
+    if not atol:
+        check(same_bits(go[gm], wo[wm]), f"{label}: emitted boxes differ")
+        return emitted, 0.0
+    err = float((go[gm][:, boxes] - wo[wm][:, boxes]).abs().max())
+    check(err <= atol, f"{label}: boxes differ by {err:.2e} (> {atol})")
+    return emitted, err
 
 
 def failover_across(label, make_one, make_sharded, submit, ticks, cut, work,
@@ -2291,13 +2361,15 @@ def sharded_phase(phase, card, byte, live, hybrid, served_live, scene):
     runner = MultiStreamRunner(init, step, S, devices=devices)
     for m in counters:
         m.LAUNCHES = 0
-    ms, times, outs, out_masks = sharded_runs(
-        runner, (dets, masks), counters,
-        {auction_cuda: 2 * SHARDS * T, osblock_cuda: 0}, "sharded ByteTrack")
+    run_s, times, outs, out_masks = timed_runs(
+        runner, dets, masks, counters,
+        {auction_cuda: 2 * SHARDS * T, osblock_cuda: 0}, "sharded ByteTrack",
+        SHARDED_REPEATS)
+    ms = run_s * 1e3 / T
     for m in counters:
         launches[m] += m.LAUNCHES
-    emitted = same_outputs("sharded ByteTrack", (outs, out_masks),
-                           byte["outputs"])
+    emitted, _ = same_outputs("sharded ByteTrack", (outs, out_masks),
+                              byte["outputs"])
     print(f"phase {phase} (a) ByteTrack S={S} over {SHARDS} shards on one "
           f"card, T={T}: {ms:.3f} ms per frame-batch (median of "
           f"{SHARDED_REPEATS}, runs {[round(t * 1e3, 1) for t in times]} ms)"
@@ -2341,12 +2413,13 @@ def sharded_phase(phase, card, byte, live, hybrid, served_live, scene):
                                embed_fn=embed, emb_cadence=CADENCE)
     for m in counters:
         m.LAUNCHES = 0
-    live_ms, times, *got = sharded_runs(
-        runner, legs, counters, {osblock_cuda: 6 * SHARDS * LIVE_T,
-                                 auction_cuda: 2 * SHARDS * LIVE_T},
-        "sharded BoT-SORT live")
-    emitted = same_outputs("sharded BoT-SORT live cadence 8", got,
-                           live["outputs"]["cadence 8"])
+    live_s, times, *got = timed_runs(
+        runner, *legs[:2], counters, {osblock_cuda: 6 * SHARDS * LIVE_T,
+                                      auction_cuda: 2 * SHARDS * LIVE_T},
+        "sharded BoT-SORT live", SHARDED_REPEATS, embs=legs[2])
+    live_ms = live_s * 1e3 / LIVE_T
+    emitted, _ = same_outputs("sharded BoT-SORT live cadence 8", got,
+                              live["outputs"]["cadence 8"])
     ticks = served_live["ticks"]
     svc = TrackingService.from_tracker(
         "botsort", LIVE_S, max_dets=LIVE_N, emb_dim=LIVE_D, devices=devices,
@@ -2402,17 +2475,18 @@ def sharded_phase(phase, card, byte, live, hybrid, served_live, scene):
         got[n_dev] = MultiStreamRunner(
             *make(), LIVE_S, embed_fn=sized_embed, crop_budget=full,
             emb_priority=True, **kw).run(*legs[:2], embs=legs[2])
-    emitted = same_outputs(f"sharded HybridSORT live at budget {full}",
-                           got[SHARDS], got[None])
+    emitted, _ = same_outputs(f"sharded HybridSORT live at budget {full}",
+                              got[SHARDS], got[None])
     budget = round(HYBRID_PRIORITY * LIVE_S * LIVE_N)
     runner = MultiStreamRunner(*make(), LIVE_S, devices=devices,
                                embed_fn=sized_embed, crop_budget=budget,
                                emb_priority=True)
     batch_sizes.clear()
-    hybrid_ms, times, *_ = sharded_runs(
-        runner, legs, counters, {osblock_cuda: 6 * SHARDS * LIVE_T,
-                                 auction_cuda: 3 * SHARDS * LIVE_T},
-        "sharded HybridSORT live")
+    hybrid_s, times, *_ = timed_runs(
+        runner, *legs[:2], counters, {osblock_cuda: 6 * SHARDS * LIVE_T,
+                                      auction_cuda: 3 * SHARDS * LIVE_T},
+        "sharded HybridSORT live", SHARDED_REPEATS, embs=legs[2])
+    hybrid_ms = hybrid_s * 1e3 / LIVE_T
     for m in counters:
         launches[m] += m.LAUNCHES
     check(batch_sizes == [budget // SHARDS] * (SHARDS * LIVE_T
@@ -2474,35 +2548,42 @@ def sharded_phase(phase, card, byte, live, hybrid, served_live, scene):
             "osblock_err": max(b["max_err"] for b in blocks)}
 
 
-def profile_split(fn, patches):
-    """utils/profiling.py's device_split of ``fn()`` with each (module,
-    attribute, label) of ``patches`` wrapped in a record_function range,
-    as a line: the wall under the profiler, the kernels' device time and
-    count, and each label's share, the kernels that start inside one of
-    its ranges' device spans."""
+def profile_split(run, parts, patches=(), frames=None, rest="the rest"):
+    """utils/profiling.py's device_split of ``run(*parts[1])`` after the
+    warm-up ``run(*parts[0])`` (a path's consecutive frames, so that the
+    profiled ones continue its state, or one call twice), with each
+    (module, attribute, label) of ``patches`` wrapped in a
+    record_function range. Returns the split and its line: the kernels'
+    count and device time, the wall under the profiler, the device's
+    busy share, and each label's time and share, the kernels that start
+    inside one of its ranges' device spans (the rest under ``rest``);
+    a frame over ``frames`` frames where given. Fails where a label's
+    ranges hold no device time."""
     saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in patches]
     for mod, attr, label in patches:
         setattr(mod, attr, ranged(getattr(mod, attr), label))
+    it = iter(parts)
     try:
-        split = device_split(fn, [label for _, _, label in patches])
-    except RuntimeError as exc:
-        return f"{exc}: split not measured"
+        split = device_split(lambda: run(*next(it)),
+                             [label for _, _, label in patches])
     finally:
         for mod, attr, f in saved:
             setattr(mod, attr, f)
-    device_ms = split["device_ms"]
-    parts = [f"wall {split['wall_ms']:.3f} ms under the profiler, kernels "
-             f"{device_ms:.3f} ms ({split['kernels']})"]
+    n, unit = (frames, " a frame") if frames else (1, "")
+    device_ms, wall_ms = split["device_ms"], split["wall_ms"]
+    line = [f"{split['kernels'] / n:.0f} kernels{unit}, device "
+            f"{device_ms / n:.3f} ms{unit} in {wall_ms / n:.3f} ms of wall "
+            f"under the profiler (busy {100 * device_ms / wall_ms:.1f}%)"]
     inside = 0.0
     for label, ms in split["labels"].items():
-        inside += ms or 0.0
-        parts.append(f"{label} {ms or 0.0:.3f} ms "
-                     f"({100 * (ms or 0.0) / device_ms:.1f}%)"
-                     + ("" if ms is not None else " (no device span)"))
-    rest = device_ms - inside
-    parts.append(f"the rest (preprocessing, gates, pools, residuals, "
-                 f"norm) {rest:.3f} ms ({100 * rest / device_ms:.1f}%)")
-    return "; ".join(parts)
+        check(ms, f"the profiler saw no device time inside {label}")
+        inside += ms
+        line.append(f"{label} {ms / n:.3f} ms{unit} "
+                    f"({100 * ms / device_ms:.1f}%)")
+    if patches:
+        line.append(f"{rest} {(device_ms - inside) / n:.3f} ms{unit} "
+                    f"({100 * (device_ms - inside) / device_ms:.1f}%)")
+    return split, "; ".join(line)
 
 
 def fixture_cosines():
@@ -2668,11 +2749,12 @@ def int8_phase(phase, card, live, served_live, scene):
           f"{float((got - host).abs().max()):.3g}")
     print(f"phase {phase} (b) {fixture_cosines()}")
     x = flat[:per_cadence]
-    split = profile_split(lambda: embed(x), [
+    _, split = profile_split(embed, [(x,), (x,)], [
         (int8, "int8_matmul", "int8 products"),
         (quant, "_quantize_act", "quantize"),
         (quant, "_dequantize", "dequantize"),
-        (quant, "_conv", "depthwise")])
+        (quant, "_conv", "depthwise")],
+        rest="the rest (preprocessing, gates, pools, residuals, norm)")
     print(f"phase {phase} (b) profile of one int8 embed of {per_cadence} "
           f"crops: {split}")
     del fused, folded, got, want
@@ -2696,8 +2778,8 @@ def int8_phase(phase, card, live, served_live, scene):
         m.LAUNCHES = 0
     runner = MultiStreamRunner(init, step, LIVE_S, device="cuda",
                                embed_fn=embed_fn, emb_cadence=CADENCE)
-    run_s, times, outs, out_masks = timed_runs(runner, dets, masks, crops,
-                                               counters, want)
+    run_s, times, outs, out_masks = timed_runs(
+        runner, dets, masks, counters, want, "BoT-SORT int8 live", embs=crops)
     launches = {m: m.LAUNCHES for m in counters}
     emitted = check_live_outputs("BoT-SORT int8 live", last[0], outs,
                                  out_masks)
@@ -3121,6 +3203,340 @@ def attribution_phase(phase, card, block_ms):
             "osblock_launches": launches[osblock_cuda],
             "auction_err": 0,
             "osblock_err": max(r["max_abs_err"] for r in blocks)}
+
+
+
+def long_horizon_phase(phase, card):
+    """Phase ``phase``: motcpp_tpu_torch/scripts/longrun_stability.py in
+    process, its scene made on the card. (a) its defaults: ByteTrack,
+    256 streams, 10000 frames in chunks of 500 through run(), every
+    emitted row finite; (b) OC-SORT over LONG_OC_FRAMES frames (its
+    observation ring wraps); (c) (a)'s first LONG_EQUAL_CHUNKS chunks
+    again as one run() of a fresh runner: masks, ids, boxes and the
+    carried state equal to (a)'s bit for bit; (d) the kernel on the
+    solves of (a)'s last frame held to the plain auction (max abs err 0)
+    and timed beside it and its bound; (e) (a), (b) and (c) launch the
+    kernel exactly twice a frame; and profiles of 10 frames of (a)'s path
+    (after (c)'s frames) and (b)'s (frames 10-19 of a fresh run). Returns
+    the launches of (a) and (b) ((c) is a comparison) and (d)'s largest
+    difference."""
+    from motcpp_tpu_torch.ops import auction_cuda
+    from motcpp_tpu_torch.parallel.streams import MultiStreamRunner
+    from motcpp_tpu_torch.scripts import longrun_stability as longrun
+    from motcpp_tpu_torch.scripts.tracker_fns import build_tracker_fns
+
+    t_phase = time.perf_counter()
+    args = longrun.parser().parse_args([])
+    n_chunks = -(-args.frames // args.chunk)
+    kept, state_at, last, after = [], [], [], []
+    solve = auction_cuda.solve
+    seen = [0]  # solves of (a)'s last chunk so far
+
+    def recording_solve(*a):
+        seen[0] += 1
+        if seen[0] > 2 * (args.chunk - 1):  # the last frame's two solves
+            last.append([t.clone() for t in a])
+        return solve(*a)
+
+    def on_chunk(c, runner, dets, masks, outs, out_masks):
+        if c < LONG_EQUAL_CHUNKS:
+            kept.append((dets, masks, outs, out_masks))
+        if c == LONG_EQUAL_CHUNKS - 1:
+            state_at.append(runner.states)
+        if c == LONG_EQUAL_CHUNKS:  # the frames that follow, to profile
+            after.extend([(dets[:10], masks[:10]), (dets[10:20],
+                                                    masks[10:20])])
+        if c == n_chunks - 2:
+            auction_cuda.solve = recording_solve
+
+    split, launches = {}, {}
+    for key, argv, hook in (
+            ("a", [], on_chunk),
+            ("b", ["--tracker", "ocsort", "--frames", str(LONG_OC_FRAMES)],
+             None)):
+        auction_cuda.LAUNCHES = 0
+        t0 = time.perf_counter()
+        try:
+            rep = longrun.run(longrun.parser().parse_args(argv),
+                              on_chunk=hook)
+        finally:
+            auction_cuda.solve = solve
+        split[key] = time.perf_counter() - t0
+        launches[key] = auction_cuda.LAUNCHES
+        label = f"({key}) {rep['tracker']}"
+        check(rep["failed"] is None, f"{label}: a non-finite emission in "
+              f"chunk {rep['failed']}")
+        check(rep["emissions"] > 0, f"{label}: no emission")
+        check(launches[key] == 2 * rep["frames"],
+              f"(e) {label}: {launches[key]} kernel launches over "
+              f"{rep['frames']} frames, want 2 a frame")
+        ms = np.asarray(rep["chunk_ms"])
+        print(f"phase {phase} {label} S={rep['streams']} K={args.max_tracks}"
+              f" N={args.max_dets}, {rep['frames']} frames in run() calls of "
+              f"{args.chunk}: ms per frame-batch median "
+              f"{np.median(ms):.3f} over the chunks (first {ms[0]:.3f}, min "
+              f"{ms.min():.3f}, max {ms.max():.3f}), "
+              f"{rep['emissions']} emissions, largest emitted id "
+              f"{rep['max_emitted_id']}, largest next_id "
+              f"{rep['max_next_id']}, non-finite state fields "
+              f"{rep['nonfinite_leaves']}, {launches[key]} kernel launches "
+              f"(2 a frame), {split[key]:.1f} s; card: {card}", flush=True)
+
+    # (c) the leading chunks as one run()
+    t0 = time.perf_counter()
+    init, step = build_tracker_fns("bytetrack", args.max_tracks,
+                                   args.max_dets, args.lap, device="cuda")
+    whole = MultiStreamRunner(init, step, args.streams, device="cuda")
+    auction_cuda.LAUNCHES = 0
+    outs, out_masks = whole.run(torch.cat([k[0] for k in kept]),
+                                torch.cat([k[1] for k in kept]))
+    launches["c"] = auction_cuda.LAUNCHES
+    frames = outs.shape[0]
+    check(launches["c"] == 2 * frames, f"(c) {launches['c']} kernel "
+          f"launches over {frames} frames, want 2 a frame")
+    emitted, _ = same_outputs(
+        f"(c) one run() of {frames} frames against {LONG_EQUAL_CHUNKS} "
+        f"chunks of {args.chunk}", (outs, out_masks),
+        (torch.cat([k[2] for k in kept]), torch.cat([k[3] for k in kept])))
+    fields = [f for f, a, b in zip(whole.states._fields, whole.states,
+                                   state_at[0]) if not same_bits(a, b)]
+    check(not fields, f"(c) the carried state after {frames} frames "
+          f"differs from the chunked run's in {fields}")
+    split["c"] = time.perf_counter() - t0
+    print(f"phase {phase} (c) {LONG_EQUAL_CHUNKS} chunks of {args.chunk} = "
+          f"one run() of {frames} frames: masks, ids, boxes "
+          f"({emitted} emissions) and the carried state identical bit for "
+          f"bit; {launches['c']} kernel launches (2 a frame; a comparison, "
+          f"so not in the count); {split['c']:.1f} s", flush=True)
+    del kept, outs, out_masks
+
+    # profiles of 10 frames of (a)'s and (b)'s paths
+    print(f"phase {phase} (a) ByteTrack profile of 10 frames after frame "
+          f"{frames + 10}: {profile_split(whole.run, after, frames=10)[1]}; "
+          f"card: {card}", flush=True)
+    scene_init, scene_chunk = longrun.make_device_scene(
+        args.streams, args.max_dets, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    _, dets, masks = scene_chunk(gen, scene_init(gen), 20)
+    init, step = build_tracker_fns("ocsort", args.max_tracks, args.max_dets,
+                                   args.lap, device="cuda")
+    fresh = MultiStreamRunner(init, step, args.streams, device="cuda")
+    _, line = profile_split(fresh.run, [(dets[:10], masks[:10]),
+                                        (dets[10:], masks[10:])], frames=10)
+    print(f"phase {phase} (b) OC-SORT profile of frames 10-19 of a fresh "
+          f"run: {line}; card: {card}", flush=True)
+
+    # (d) the kernel on the solves of (a)'s last frame
+    stats = solves_on_path(phase, "ByteTrack long-run (last frame)",
+                           ("stage 1", "stages 2+3"), last, card)
+    total = launches["a"] + launches["b"]
+    print(f"phase {phase} wall time {time.perf_counter() - t_phase:.1f} s: "
+          + ", ".join(f"({k}) {v:.1f}" for k, v in split.items())
+          + f"; auction launches on (a) and (b) {total}; card: {card}",
+          flush=True)
+    return dict(stats, auction_launches=total)
+
+
+def obb_sof_phase(phase, card):
+    """Phase ``phase``. Oriented-box SORT (``is_obb``, min_hits=1,
+    max_age=3) under MultiStreamRunner at OBB_S streams, OBB_T frames of
+    data/synthetic.py::obb_stream_dets (seed 0): one warm-up and
+    OBB_REPEATS timed runs (one launch a frame), the peak device memory,
+    the kernel on the path's inputs beside its bound, a profile of its
+    last 10 frames split by the IoU's range (which must hold device
+    time), the kernel path against the plain auction path on
+    EQUAL_STREAMS streams (identical) and the card against the CPU on
+    OBB_HOST_S streams (masks and ids identical, boxes within
+    OBB_BOX_ATOL). Then the runner's live sparse-flow leg: StrongSORT
+    (n_init=1, gallery_cap=16) with cmc_fn=sof_jax_batch at CMC scale
+    CMC_SCALE, CMC_S streams, SOF_T frames of 162x288 panning textures
+    made on the card: the warps of one pair against the known pans
+    (within SOF_PAN_ATOL, ok everywhere), sof_jax_batch's device time on
+    one pair, one warm-up and SOF_REPEATS timed runs (two launches a
+    frame), a profile of the second half of the frames, the kernel on
+    the inputs of the middle frame beside its bound, the rollout over
+    two run() calls against one (identical), the card against the CPU on
+    SOF_HOST_S streams and SOF_HOST_T frames (masks and ids identical,
+    boxes within SOF_BOX_ATOL; the first differing frame and stream
+    named otherwise), and a run without camera motion, which must
+    differ. Returns the timed runs' launches and the largest difference
+    of the kernel from the plain auction on either path."""
+    from motcpp_tpu_torch.data import obb_stream_dets, pan_frames
+    from motcpp_tpu_torch.data import synth_stream_dets
+    from motcpp_tpu_torch.models import sort as sort_module
+    from motcpp_tpu_torch.motion.cmc import sof_jax_batch
+    from motcpp_tpu_torch.ops import auction_cuda
+    from motcpp_tpu_torch.parallel.streams import MultiStreamRunner
+    from motcpp_tpu_torch.scripts.tracker_fns import build_tracker_fns
+
+    t_phase = time.perf_counter()
+    split, launches = {}, {}
+
+    def timed(runner, dets, masks, repeats, per_frame, label, **legs):
+        """timed_runs with the launches of all its runs and a check that
+        the last run emits, each emitted row finite."""
+        auction_cuda.LAUNCHES = 0
+        run_s, times, outs, out_masks = timed_runs(
+            runner, dets, masks, (auction_cuda,),
+            {auction_cuda: per_frame * dets.shape[0]}, label, repeats, **legs)
+        emitted = int(out_masks.sum())
+        check(emitted > 0 and bool(torch.isfinite(outs[out_masks]).all()),
+              f"{label}: {emitted} emissions, or a non-finite one")
+        return outs, out_masks, run_s, times, auction_cuda.LAUNCHES
+
+    # ---- oriented-box SORT ------------------------------------------------
+    t0 = time.perf_counter()
+
+    def make_obb(lap, device="cuda"):
+        return sort_module.make_sort(sort_module.SortConfig(
+            is_obb=True, min_hits=1, max_age=3, max_tracks=K, max_dets=N,
+            lap_impl=lap), device=device)
+
+    dets_np, masks_np = obb_stream_dets(np.random.default_rng(0), OBB_T,
+                                        OBB_S, N, n_obj=N_OBJ)
+    dets = torch.from_numpy(dets_np).cuda()
+    masks = torch.from_numpy(masks_np).cuda()
+    init, step = make_obb("auction_pallas")
+    runner = MultiStreamRunner(init, step, OBB_S, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    outs, out_masks, run_s, times, launches["obb"] = timed(
+        runner, dets, masks, OBB_REPEATS, 1, "OBB SORT")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(outs.shape == (OBB_T, OBB_S, K, 9), f"OBB SORT output "
+          f"{tuple(outs.shape)}")
+    print(f"phase {phase} OBB SORT main path S={OBB_S} K={K} N={N} "
+          f"T={OBB_T}: {run_s * 1e3 / OBB_T:.3f} ms per frame-batch (median "
+          f"of {OBB_REPEATS}, runs {[round(t * 1e3, 1) for t in times]} ms),"
+          f" {OBB_S * OBB_T / run_s / 30:.0f} streams at 30 FPS, "
+          f"{int(out_masks.sum())} emissions in the last run, "
+          f"{launches['obb']} kernel launches, peak device memory "
+          f"{peak_gb:.2f} GB; card: {card}", flush=True)
+    half = OBB_T // 2
+    runner.reset()
+    runner.run(dets[:half], masks[:half])
+    stats = auction_on_path(
+        phase, "OBB SORT", ("stage 1",),
+        lambda: runner.run(dets[half:half + 1], masks[half:half + 1]), card)
+    warm, prof_sl = slice(half + 1, OBB_T - 10), slice(OBB_T - 10, OBB_T)
+    _, line = profile_split(
+        runner.run, [(dets[warm], masks[warm]),
+                     (dets[prof_sl], masks[prof_sl])],
+        [(sort_module, "iou_batch_obb", "iou_batch_obb")], frames=10)
+    print(f"phase {phase} OBB SORT profile of its last 10 frames: {line}; "
+          f"card: {card}", flush=True)
+    d, m = dets[:, :EQUAL_STREAMS], masks[:, :EQUAL_STREAMS]
+    pi, ps = make_obb("auction")
+    equal, _ = same_outputs(
+        "OBB SORT kernel path against the plain path",
+        MultiStreamRunner(init, step, EQUAL_STREAMS, device="cuda").run(d, m),
+        MultiStreamRunner(pi, ps, EQUAL_STREAMS, device="cuda").run(d, m),
+        id_col=5)
+    hi, hs = make_obb("auction_pallas", device="cpu")
+    d, m = dets_np[:, :OBB_HOST_S], masks_np[:, :OBB_HOST_S]
+    _, obb_err = same_outputs(
+        "OBB SORT card against CPU",
+        MultiStreamRunner(init, step, OBB_HOST_S, device="cuda").run(d, m),
+        MultiStreamRunner(hi, hs, OBB_HOST_S, device="cpu").run(d, m),
+        OBB_BOX_ATOL, slice(0, 5), 5)
+    split["obb"] = time.perf_counter() - t0
+    print(f"phase {phase} OBB SORT kernel path = plain path on "
+          f"{EQUAL_STREAMS} streams: identical ({equal} emissions);"
+          f" card = CPU on {OBB_HOST_S} streams: masks and ids identical, "
+          f"boxes within {obb_err:.2e} px; {split['obb']:.1f} s", flush=True)
+    del dets, masks, outs, out_masks
+
+    # ---- the live sparse-flow leg -----------------------------------------
+    t0 = time.perf_counter()
+    fh, fw = int(1080 * CMC_SCALE), int(1920 * CMC_SCALE)
+    frames, pans = pan_frames(SOF_T, CMC_S, fh, fw,
+                              torch.Generator(device="cuda").manual_seed(0))
+    w, ok = sof_jax_batch(frames[0], frames[1])
+    err_x = float((w[:, 0, 2] + pans.float()).abs().max())
+    err_y = float(w[:, 1, 2].abs().max())
+    check(bool(ok.all()), f"SOF failed on {int((~ok).sum())} streams")
+    check(err_x <= SOF_PAN_ATOL and err_y <= SOF_PAN_ATOL, f"SOF warps miss "
+          f"the pans by {err_x:.2e} px in x, {err_y:.2e} px in y "
+          f"(> {SOF_PAN_ATOL})")
+    hw, _ = sof_jax_batch(frames[0, :SOF_HOST_S].cpu(),
+                          frames[1, :SOF_HOST_S].cpu())
+    warp_err = float((w[:SOF_HOST_S].cpu() - hw).abs().max())
+    sof_ms = call_ms(lambda: sof_jax_batch(frames[0], frames[1]), 1)[0]
+    print(f"phase {phase} sof_jax_batch on one frame pair, S={CMC_S} "
+          f"{(fh, fw)}: warps x = -pan within {err_x:.2e} px, y within "
+          f"{err_y:.2e} px, ok on every stream; {sof_ms:.3f} ms of device "
+          f"time; the card's warps of {SOF_HOST_S} streams within "
+          f"{warp_err:.2e} of the CPU's; card: {card}", flush=True)
+    ss_init, ss_step = build_tracker_fns("strongsort", K, N, "auction_pallas",
+                                         device="cuda")
+    sdets_np, smasks_np = synth_stream_dets(np.random.default_rng(0), SOF_T,
+                                            CMC_S, N, n_obj=N_OBJ)
+    sdets = torch.from_numpy(sdets_np).cuda()
+    smasks = torch.from_numpy(smasks_np).cuda()
+
+    def live(streams, device="cuda", fns=(ss_init, ss_step)):
+        return MultiStreamRunner(*fns, streams, device=device,
+                                 cmc_fn=sof_jax_batch, cmc_scale=CMC_SCALE)
+
+    lo, lm, run_s, times, launches["sof"] = timed(
+        live(CMC_S), sdets, smasks, SOF_REPEATS, 2, "live SOF",
+        frames=frames)
+    print(f"phase {phase} StrongSORT live SOF main path S={CMC_S} K={K} "
+          f"N={N} T={SOF_T}, frames {(fh, fw)} at CMC scale {CMC_SCALE}: "
+          f"{run_s * 1e3 / SOF_T:.3f} ms per frame-batch (median of "
+          f"{SOF_REPEATS}, runs {[round(t * 1e3, 1) for t in times]} ms), "
+          f"{CMC_S * SOF_T / run_s / 30:.1f} streams at 30 FPS, "
+          f"{int(lm.sum())} emissions in the last run, {launches['sof']} "
+          f"kernel launches; card: {card}", flush=True)
+    half = SOF_T // 2
+    runner = live(CMC_S)
+    _, line = profile_split(
+        lambda d, m, f: runner.run(d, m, frames=f),
+        [(sdets[sl], smasks[sl], frames[sl])
+         for sl in (slice(0, half), slice(half, SOF_T))], frames=SOF_T - half)
+    print(f"phase {phase} StrongSORT live SOF profile of frames {half}-"
+          f"{SOF_T - 1} of a fresh run: {line}; card: {card}", flush=True)
+    runner.reset()
+    runner.run(sdets[:half], smasks[:half], frames=frames[:half])
+    sof_stats = auction_on_path(
+        phase, "StrongSORT live SOF", ("stage A", "stage B"),
+        lambda: runner.run(sdets[half:half + 1], smasks[half:half + 1],
+                           frames=frames[half:half + 1]), card)
+    two = live(CMC_S)
+    parts = [two.run(sdets[sl], smasks[sl], frames=frames[sl])
+             for sl in (slice(0, half), slice(half, SOF_T))]
+    same_outputs("live SOF over two run() calls against one",
+                 (torch.cat([p[0] for p in parts]),
+                  torch.cat([p[1] for p in parts])), (lo, lm))
+    hfns = build_tracker_fns("strongsort", K, N, "auction_pallas",
+                             device="cpu")
+    sl = (slice(0, SOF_HOST_T), slice(0, SOF_HOST_S))
+    host_frames = frames[sl].cpu()
+    _, sof_err = same_outputs(
+        "live SOF card against CPU",
+        live(SOF_HOST_S).run(sdets[sl], smasks[sl], frames=frames[sl]),
+        live(SOF_HOST_S, "cpu", hfns).run(sdets_np[sl], smasks_np[sl],
+                                          frames=host_frames),
+        SOF_BOX_ATOL)
+    no, nm = MultiStreamRunner(ss_init, ss_step, CMC_S,
+                               device="cuda").run(sdets, smasks)
+    check(not (torch.equal(nm, lm) and same_bits(no[nm], lo[lm])),
+          "live SOF: a run without camera motion emits the same tracks")
+    split["sof"] = time.perf_counter() - t0
+    print(f"phase {phase} live SOF over two run() calls = one call: "
+          f"identical ({int(lm.sum())} emissions); card = CPU on "
+          f"{SOF_HOST_S} streams x {SOF_HOST_T} frames: masks and ids "
+          f"identical, boxes within {sof_err:.2e} px; without camera motion "
+          f"{int(nm.sum())} emissions, {int((nm != lm).sum())} slots differ; "
+          f"{split['sof']:.1f} s", flush=True)
+    del frames
+    total = launches["obb"] + launches["sof"]
+    print(f"phase {phase} wall time {time.perf_counter() - t_phase:.1f} s: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in split.items())
+          + f"; auction launches {total} (OBB {launches['obb']}, SOF "
+          f"{launches['sof']}); card: {card}", flush=True)
+    return dict(stats, auction_launches=total,
+                auction_err=max(stats["auction_err"],
+                                sof_stats["auction_err"]))
 
 
 def main(argv=None):

@@ -8,6 +8,7 @@ from motcpp_tpu_torch.data.mot_format import convert_to_mot_format, write_mot_re
 from motcpp_tpu_torch.data.synthetic import (
     ablation_scene,
     camera_pan_scene,
+    obb_stream_dets,
     pack_valid_rows,
     pan_frames,
     pan_texture,
@@ -20,6 +21,7 @@ __all__ = [
     "ablation_scene",
     "camera_pan_scene",
     "convert_to_mot_format",
+    "obb_stream_dets",
     "pack_valid_rows",
     "pan_frames",
     "pan_texture",

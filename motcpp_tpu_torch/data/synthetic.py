@@ -3,8 +3,9 @@
 ``synth_stream_dets`` is a copy of ``bench.py::synth_stream_dets``: S
 streams of n_obj jittered constant-velocity boxes over T frames, each box
 missing in 5% of frames, drawn from a NumPy generator so that the JAX
-package and the port see the same input; ``pack_valid_rows`` lays them
-out as the serving mux assembles submitted frames. ``pan_frames`` makes
+package and the port see the same input; ``obb_stream_dets`` turns them
+into rotating oriented boxes; ``pack_valid_rows`` lays them out as the
+serving mux assembles submitted frames. ``pan_frames`` makes
 the live camera-motion frames of ``bench.py:269-294`` from a torch
 generator, on the generator's device. ``camera_pan_scene`` and
 ``ablation_scene`` are copies of ``motcpp_tpu/data/synthetic.py``'s
@@ -42,6 +43,24 @@ def synth_stream_dets(rng, T, S, N, n_obj=16, img_w=1920, img_h=1080):
         dets[t, :, :n_obj, 4] = conf
         masks[t, :, :n_obj] = visible
     return dets, masks
+
+
+def obb_stream_dets(rng, T, S, N, n_obj=16):
+    """:func:`synth_stream_dets` as oriented boxes: dets (T, S, N, 7)
+    [cx, cy, w, h, angle, conf, cls] and masks (T, S, N). Each object's
+    angle starts uniform in [-pi/4, pi/4], drawn from a generator seeded
+    0, and turns 0.01 rad a frame."""
+    dets, masks = synth_stream_dets(rng, T, S, N, n_obj=n_obj)
+    n_obj = min(n_obj, N)
+    ang0 = np.random.default_rng(0).uniform(-np.pi / 4, np.pi / 4,
+                                            (S, n_obj))
+    ang = (ang0[None] + 0.01 * np.arange(T)[:, None, None]).astype(np.float32)
+    out = np.zeros((T, S, N, 7), np.float32)
+    out[..., 0:2] = (dets[..., 0:2] + dets[..., 2:4]) * 0.5
+    out[..., 2:4] = dets[..., 2:4] - dets[..., 0:2]
+    out[..., :n_obj, 4] = ang
+    out[..., 5:7] = dets[..., 4:6]
+    return out, masks
 
 
 def pack_valid_rows(dets, masks, *more):

@@ -124,6 +124,17 @@ def exact_float32():
          torch.backends.cudnn.allow_tf32) = saved
 
 
+def same_bits(a, b):
+    """Whether two tensors are equal bit for bit, NaNs included (which
+    ``torch.equal`` counts unequal) and signed zeros told apart."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.is_floating_point():
+        ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+        a, b = (t.view(ints[t.element_size()]) for t in (a, b))
+    return torch.equal(a, b)
+
+
 @contextlib.contextmanager
 def uncounted():
     """Launches inside the block leave the CUDA kernels' launch counts

@@ -22,6 +22,7 @@ from motcpp_tpu_torch.data import (
 from motcpp_tpu_torch.models.bytetrack import ByteTrackConfig, make_bytetrack
 from motcpp_tpu_torch.ops import auction, auction_cuda
 from motcpp_tpu_torch.parallel.streams import MultiStreamRunner
+from motcpp_tpu_torch.utils.profiling import same_bits
 
 import torch_threads  # noqa: F401  (torch at one thread)
 
@@ -1151,3 +1152,126 @@ def test_live_int8_service_on_the_card_equals_the_runner(cuda):
     np.testing.assert_array_equal(out_masks, want_m.cpu().numpy())
     np.testing.assert_array_equal(outs[out_masks],
                                   want_o.cpu().numpy()[out_masks])
+
+
+def assert_card_equals_cpu(got, want, box_cols, id_col, atol):
+    """Masks and ids of a card rollout equal to the CPU's, the box
+    columns within atol (tests/test_torch_sort.py and test_torch_ecc.py
+    hold the CPU against JAX at these tolerances)."""
+    (go, gm), (wo, wm) = (t.cpu() for t in got), want
+    assert torch.equal(gm, wm) and int(wm.sum()) > 0
+    assert torch.equal(go[gm][:, id_col], wo[wm][:, id_col])
+    err = (go[gm][:, box_cols] - wo[wm][:, box_cols]).abs().max()
+    assert float(err) <= atol
+
+
+def test_obb_sort_on_the_card_equals_the_cpu_and_the_plain_path(cuda):
+    """Oriented-box SORT at bench.py's SORT config (min_hits=1,
+    max_age=3) under the runner: one kernel launch a frame, the plain
+    auction's tracks on the card, the CPU's masks and ids with boxes
+    within 1e-3 px."""
+    from motcpp_tpu_torch.data import obb_stream_dets
+    from motcpp_tpu_torch.models.sort import SortConfig, make_sort
+
+    S, K, N, T = 64, 64, 32, 20
+    dets, masks = obb_stream_dets(np.random.default_rng(0), T, S, N)
+
+    def rollout(lap, device):
+        init, step = make_sort(SortConfig(
+            is_obb=True, min_hits=1, max_age=3, max_tracks=K, max_dets=N,
+            lap_impl=lap), device=device)
+        return MultiStreamRunner(init, step, S, device=device).run(dets,
+                                                                   masks)
+
+    before = auction_cuda.LAUNCHES
+    ko, km = rollout("auction_pallas", cuda)
+    assert auction_cuda.LAUNCHES - before == T
+    assert ko.shape == (T, S, K, 9)
+    po, pm = rollout("auction", cuda)
+    assert torch.equal(km, pm) and same_bits(ko[km], po[pm])
+    assert_card_equals_cpu((ko, km), rollout("auction_pallas", "cpu"),
+                           slice(0, 5), 5, 1e-3)
+
+
+def test_live_sof_runner_on_the_card_equals_the_cpu(cuda):
+    """StrongSORT under cmc_fn=sof_jax_batch at CMC scale 0.15 (bench.py
+    --cmc sof) on the same dets and 162x288 panning frames: the card
+    emits the CPU's masks and ids, boxes within 1e-2 px."""
+    from motcpp_tpu_torch.motion.cmc import sof_jax_batch
+    from motcpp_tpu_torch.scripts.tracker_fns import build_tracker_fns
+
+    S, K, N, T = 8, 64, 32, 8
+    dets, masks = synth_stream_dets(np.random.default_rng(0), T, S, N)
+    frames, _ = pan_frames(T, S, 162, 288, torch.Generator().manual_seed(0))
+
+    def rollout(device):
+        init, step = build_tracker_fns("strongsort", K, N, device=device)
+        return MultiStreamRunner(
+            init, step, S, device=device, cmc_fn=sof_jax_batch,
+            cmc_scale=0.15).run(dets, masks, frames=frames.to(device))
+
+    before = auction_cuda.LAUNCHES
+    got = rollout(cuda)
+    assert auction_cuda.LAUNCHES - before == 2 * T
+    assert_card_equals_cpu(got, rollout("cpu"), slice(0, 4), 4, 1e-2)
+
+
+def test_longrun_script_on_the_card_chunked_equals_unchunked(cuda):
+    """The long-run script at S=256 over 1000 frames in chunks of 250,
+    its scene made on the card, against one run() of the same frames:
+    masks, ids, boxes and the carried state equal bit for bit."""
+    from motcpp_tpu_torch.scripts import longrun_stability
+    from motcpp_tpu_torch.scripts.tracker_fns import build_tracker_fns
+
+    kept = []
+    before = auction_cuda.LAUNCHES
+    report = longrun_stability.run(
+        longrun_stability.parser().parse_args(
+            ["--streams", "256", "--frames", "1000", "--chunk", "250"]),
+        on_chunk=lambda c, runner, *tensors: kept.append(tensors))
+    assert report["failed"] is None and report["device"] != "cpu"
+    assert auction_cuda.LAUNCHES - before == 2 * 1000
+    init, step = build_tracker_fns("bytetrack", device=cuda)
+    runner = MultiStreamRunner(init, step, 256, device=cuda)
+    outs, out_masks = runner.run(torch.cat([k[0] for k in kept]),
+                                 torch.cat([k[1] for k in kept]))
+    assert same_bits(out_masks, torch.cat([k[3] for k in kept]))
+    assert same_bits(outs, torch.cat([k[2] for k in kept]))
+    assert all(same_bits(a, b) for a, b in zip(runner.states,
+                                               report["states"]))
+
+
+@pytest.mark.parametrize("tracker", ["bytetrack", "ocsort", "sort_obb"])
+def test_rollout_on_the_card_equals_its_deterministic_run(cuda, tracker):
+    """The rollout under torch.use_deterministic_algorithms(True), which
+    raises on a nondeterministic operation without a deterministic form
+    and swaps in the deterministic form of the others (scatters with
+    repeated indices among them), emits the default run's tracks and
+    state bit for bit."""
+    from motcpp_tpu_torch.data import obb_stream_dets
+    from motcpp_tpu_torch.models.sort import SortConfig, make_sort
+    from motcpp_tpu_torch.scripts.tracker_fns import build_tracker_fns
+
+    S, K, N, T = 256, 64, 32, 60
+    if tracker == "sort_obb":
+        dets, masks = obb_stream_dets(np.random.default_rng(0), T, S, N)
+        init, step = make_sort(SortConfig(
+            is_obb=True, min_hits=1, max_age=3, max_tracks=K, max_dets=N,
+            lap_impl="auction_pallas"), device=cuda)
+    else:
+        dets, masks = synth_stream_dets(np.random.default_rng(0), T, S, N)
+        init, step = build_tracker_fns(tracker, K, N, device=cuda)
+    dets, masks = torch.from_numpy(dets).to(cuda), torch.from_numpy(
+        masks).to(cuda)
+    runs = []
+    for deterministic in (False, True):
+        torch.use_deterministic_algorithms(deterministic)
+        try:
+            runner = MultiStreamRunner(init, step, S, device=cuda)
+            runs.append((*runner.run(dets, masks), runner.states))
+        finally:
+            torch.use_deterministic_algorithms(False)
+    (o1, m1, s1), (o2, m2, s2) = runs
+    assert int(m1.sum()) > 0
+    assert same_bits(m1, m2) and same_bits(o1, o2)
+    assert all(same_bits(a, b) for a, b in zip(s1, s2))

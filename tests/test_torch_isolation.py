@@ -245,6 +245,25 @@ def test_attribution_tools_default_to_cuda_and_raise_without_it(no_cuda):
     assert init(2) is not None
 
 
+def test_long_run_script_defaults_to_cuda_and_raises_without_it(no_cuda):
+    """The long-horizon streaming tool is in the isolation checks' scope,
+    makes its scene and runs on the card, and without --cpu (or a
+    device) raises where there is none."""
+    from motcpp_tpu_torch.scripts import longrun_stability
+
+    assert "longrun_stability.py" in {
+        p.name for p in PORT_FILES if p.parent.name == "scripts"}
+    for call in (lambda: longrun_stability.main([]),
+                 lambda: longrun_stability.run(
+                     longrun_stability.parser().parse_args(
+                         ["--streams", "2", "--frames", "2", "--chunk", "2"])),
+                 lambda: longrun_stability.make_device_scene(4, 32)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    scene_init, _ = longrun_stability.make_device_scene(4, 32, device="cpu")
+    assert scene_init(torch.Generator().manual_seed(0)) is not None
+
+
 @pytest.mark.parametrize("path", PORT_FILES,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_yaml_import(path):

@@ -257,3 +257,55 @@ def test_runner_at_bench_config_matches_jax_runner(lap):
         np.testing.assert_array_equal(got[:, 4], want[:, 4])
         np.testing.assert_allclose(got[:, :4], want[:, :4], atol=1e-3)
     assert jmasks.sum() > 0
+
+
+def obb_stream_scene(S=4, T=20, N=8, n=4):
+    """obb_scene's rotating boxes over S streams, each stream shifted
+    and turned: dets (T, S, N, 7) [cx, cy, w, h, angle, conf, cls] and
+    masks (T, S, N); box 1 crosses the others, and stream 0's box 3 is
+    missing for three frames."""
+    dets = np.zeros((T, S, N, 7), np.float32)
+    masks = np.zeros((T, S, N), bool)
+    for t in range(T):
+        for s in range(S):
+            for k in range(n):
+                cx = (200 + 150 * k + 30 * s + 4.0 * t
+                      - (12.0 * t if k == 1 else 0.0))
+                cy = 300 + 40 * k + 20 * s + 2.0 * t
+                dets[t, s, k] = [cx, cy, 120, 50, 0.3 * k + 0.05 * t
+                                 + 0.1 * s, 0.9, k % 2]
+                masks[t, s, k] = not (s == 0 and k == 3 and 8 <= t < 11)
+    return dets, masks
+
+
+@pytest.mark.parametrize("lap", ["jv", "auction"])
+def test_obb_runner_matches_jax_vmapped_step(lap):
+    """The stream-batched OBB step under MultiStreamRunner, from its
+    first 7-column frame, in two run() calls, against the JAX package's
+    vmapped OBB step frame by frame, at
+    test_step_matches_jax_frame_by_frame's tolerances."""
+    cfg = dict(max_tracks=16, max_dets=8, max_age=3, min_hits=1,
+               lap_impl=lap, is_obb=True)
+    dets, masks = obb_stream_scene()
+    T, S = dets.shape[:2]
+    jinit, jstep = jax_make(JaxConfig(**cfg))
+    jstep = jax.jit(jax.vmap(jstep))
+    jstate = jax.vmap(lambda _: jinit())(jnp.arange(S))
+    jouts, jmasks = [], []
+    for t in range(T):
+        jstate, (jout, jmask) = jstep(jstate, jnp.asarray(dets[t]),
+                                      jnp.asarray(masks[t]))
+        jouts.append(np.asarray(jout))
+        jmasks.append(np.asarray(jmask))
+    init, step = make_sort(SortConfig(**cfg), device="cpu")
+    runner = MultiStreamRunner(init, step, S, device="cpu")
+    parts = [runner.run(dets[sl], masks[sl])
+             for sl in (slice(0, 7), slice(7, T))]
+    outs = torch.cat([p[0] for p in parts]).numpy()
+    out_masks = torch.cat([p[1] for p in parts]).numpy()
+    assert outs.shape == (T, S, 16, 9)
+    np.testing.assert_array_equal(out_masks, np.stack(jmasks))
+    np.testing.assert_allclose(outs, np.stack(jouts), rtol=1e-5, atol=0)
+    assert_state_equal(runner.states, jstate)
+    assert out_masks[0].sum() == 4 * S  # every box born on frame 1
+    assert out_masks[8:11, 0].sum(-1).tolist() == [3, 3, 3]  # the dropout

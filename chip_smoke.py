@@ -16,8 +16,10 @@ the serving tail-latency harness and the SLO sweep, and the
 time-attribution tools (the per-piece OSNet profile, the stage
 microbenchmarks, the stage ablation and the select microbench), the
 long-horizon streaming tool, oriented-box SORT and the live sparse-flow
-leg, and checks what they emit. The trackers are built at the scoreboard's
-configurations by ``motcpp_tpu_torch/scripts/tracker_fns.py``.
+leg, and the ablation accuracy scoreboard with its cadence and
+priority-budget probes, and checks what they emit. The trackers are
+built at the scoreboard's configurations by
+``motcpp_tpu_torch/scripts/tracker_fns.py``.
 
     python3 chip_smoke.py [--baseline OTHER_AUCTION_CU]
 
@@ -37,7 +39,9 @@ timings, so those compare float32 arithmetic. Phases:
      native mux and the native IO library); print its registers and
      spills and the card's name and power limit;
   2. the auction kernel against the plain auction at (K, N) = (64, 32),
-     (128, 64), (128, 128), (256, 128) and BoT-SORT's (64, 16), and on
+     (128, 64), (128, 128), (256, 128), BoT-SORT's (64, 16), and
+     detections by tracks at the ablation scoreboard's (96, 192) and the
+     eval CLI's capacities (128, 256), and on
      the edge classes of tests/auction_cases.py (ties, zero benefits of
      either sign, empty problems, K or N of 1, N of 16, 33 and 128, K of
      256, a problem that hits MAX_ROUNDS): identical row2col/col2row;
@@ -229,7 +233,7 @@ timings, so those compare float32 arithmetic. Phases:
      calls and comparison launches are not counted;
  23. long-horizon streaming (motcpp_tpu_torch/scripts/longrun_stability.py,
      in process, its scene made on the card chunk by chunk): (a) its
-     defaults, ByteTrack at S=256, K=64, N=32 over 10000 frames in
+     defaults but LONG_FRAMES frames, ByteTrack at S=256, K=64, N=32 in
      chunks of 500, every emitted row finite, ms per frame-batch of
      each chunk, the largest emitted id and next_id; (b) OC-SORT over
      LONG_OC_FRAMES frames (its observation ring wraps); (c) (a)'s
@@ -254,13 +258,33 @@ timings, so those compare float32 arithmetic. Phases:
      and 3 timed runs, a profile of 3 frames, two run() calls against
      one (identical), the card
      against the CPU on 8 streams (masks and ids identical, boxes within
-     1e-2 px) and a run without camera motion, which must differ.
+     1e-2 px) and a run without camera motion, which must differ;
+ 25. the ablation accuracy scoreboard
+     (motcpp_tpu_torch/scripts/ablation_benchmark.py, in process, on the
+     card through the auction kernel, SCORE_FRAMES frames of the
+     calibrated ablation scene, max_tracks=192, max_dets=96, one stream):
+     (a) all eleven SCOREBOARD rows, each row of
+     tests/accuracy_ablation.json within 1.0 HOTA of it, and the JAX
+     package's orderings and scale bars (MT >= 40, ML <= 10, HOTA >= 60 on
+     every row; StrongSORT and UCMCTrack MT >= 50); (b) bench.py's five
+     DEPLOYED points (cadence 8, 8 and 2; priority 0.6 and 0.8), each
+     within 1.0 HOTA of its committed row, its cost against (a)'s row
+     printed, every frame's priority selection equal to the host's; (c)
+     ByteTrack and BoostTrack on the host through the plain auction, the
+     card's rows within 0.5 of them on HOTA, MOTA, IDF1, DetA and AssA;
+     (d) BoostTrack again on the card, its metrics and rows identical;
+     (b) with (d), and (c), run in two worker processes beside (a); (e)
+     the kernel on the solves of StrongSORT's and BoostTrack's middle
+     frames (tracks by detections, (1, 192, 96), and detections by
+     tracks, (1, 96, 192), eight columns a lane) against the plain
+     auction (max abs err 0), beside its bound. (d) is a comparison:
+     its launches are not counted.
 
 Any failed check exits nonzero before the result is printed. The last
 line is ``{"ok": true, "device": {...}}``; the line before it is the
 card's name and power limit, and the one before that lists the kernels
 with their times and bounds (those of phases 3 and 7) and their
-launches summed over the main paths of phases 3, 7 and 9-24, each
+launches summed over the main paths of phases 3, 7 and 9-25, each
 counted from zero; before those, the script's wall time.
 """
 
@@ -302,7 +326,8 @@ from motcpp_tpu_torch.utils.profiling import (  # noqa: E402
 # REPEATS timed runs a path (5 until the script outgrew 900 s)
 S, K, N, N_OBJ, T, REPEATS = 4096, 64, 32, 16, 60, 3
 CHECK_SHAPES = [(64, 32, 4096), (128, 64, 1024), (128, 128, 1024),
-                (256, 128, 256), (64, 16, 256)]
+                (256, 128, 256), (64, 16, 256), (96, 192, 256),
+                (128, 256, 64)]
 # ms of the previous auction kernel (one CTA of 256 threads per problem,
 # a K-long column scan per round) on the inputs of phases 2 and 3, as
 # PERF.md records them from its run J (NVIDIA H100 80GB HBM3, 700 W);
@@ -360,12 +385,12 @@ PROFILE_CROPS, PROFILE_REPEATS = 2048, 3
 STAGE_ITERS = 3
 ABLATE_TRACKERS, ABLATE_T, ABLATE_REPEATS = ("bytetrack", "boosttrack"), 30, 2
 SELECT_STREAMS, SELECT_REPEATS = 2048, 20
-# phase 23: the long-horizon script's defaults (ByteTrack), OC-SORT's
-# frames, and the leading chunks run again as one run(); cut from 2000
-# frames and 4 chunks to keep the script within 900 s (on an H100 at
-# 700 W the defaults' run alone takes 100-145 s: ByteTrack at 8-16 ms a
-# frame-batch, host-bound, with chunks up to 53 ms)
-LONG_OC_FRAMES, LONG_EQUAL_CHUNKS = 500, 2
+# phase 23: the long-horizon script's defaults (ByteTrack) but its frames,
+# OC-SORT's frames, and the leading chunks run again as one run(); cut
+# from 10000, 2000 frames and 4 chunks to keep the script within 900 s (on
+# an H100 at 700 W the defaults' run alone takes 100-145 s: ByteTrack at
+# 8-16 ms a frame-batch, host-bound, with chunks up to 53 ms)
+LONG_FRAMES, LONG_OC_FRAMES, LONG_EQUAL_CHUNKS = 5000, 500, 2
 # phase 24: oriented-box SORT (streams, frames, timed runs, streams run
 # on the host as well) and the live sparse-flow leg (frames, timed runs,
 # streams and frames run on the host as well), their frames cut from 60
@@ -377,6 +402,24 @@ LONG_OC_FRAMES, LONG_EQUAL_CHUNKS = 500, 2
 OBB_S, OBB_T, OBB_REPEATS, OBB_HOST_S, OBB_BOX_ATOL = 2048, 30, 3, 8, 1e-3
 SOF_T, SOF_REPEATS, SOF_HOST_S, SOF_HOST_T = 6, 3, 8, 6
 SOF_PAN_ATOL, SOF_BOX_ATOL = 0.05, 1e-2
+# phase 25: the ablation scoreboard's frames (the committed tables'); its
+# bars: a row's HOTA against the committed JAX row (the JAX package's
+# auction-against-JV bar, tests/test_accuracy_synthetic.py::
+# test_auction_accuracy_parity_with_jv), and the card's rows against the
+# host's plain auction on SCORE_HOST_ROWS (the JAX package's tolerance for
+# its committed table, tests/test_accuracy_ablation.py)
+SCORE_FRAMES, SCORE_HOTA_BAR, SCORE_HOST_ATOL = 600, 1.0, 0.5
+SCORE_HOST_ROWS = ("bytetrack", "boosttrack")
+# rows whose middle frame's solves (e) holds to the plain auction and
+# times: tracks by detections, (1, 192, 96), and detections by tracks,
+# (1, 96, 192), where a lane holds eight of the 192 columns
+SCORE_SOLVE_ROWS = ("strongsort", "boosttrack")
+# bench.py DEPLOYED's points: BoT-SORT and DeepOC-SORT at cadence 8,
+# BoostTrack at cadence 2, StrongSORT and HybridSORT at priority budgets
+SCORE_POINTS = ((("botsort", "deepocsort"), {"emb_cadence": CADENCE}),
+                (("boosttrack",), {"emb_cadence": BOOST_CADENCE}),
+                (("strongsort",), {"emb_budget": STRONG_PRIORITY}),
+                (("hybridsort",), {"emb_budget": HYBRID_PRIORITY}))
 # auction launches of one tick of each tracker's step at the harness's
 # configurations (PERF.md section 3)
 STEP_LAUNCHES = {"bytetrack": 2, "botsort": 2, "strongsort": 2,
@@ -694,6 +737,10 @@ def run_smoke(baseline=None):
     # ---- 24. oriented-box SORT and the live sparse-flow leg --------------
     obb_sof = obb_sof_phase(24, smi)
 
+    # ---- 25. the ablation accuracy scoreboard with its cadence and
+    #      priority-budget probes ----------------------------------------
+    scores = scoreboard_phase(25, smi)
+
     motion = [p for name, p in paths.items() if not name.endswith("live")]
     live_paths = [p for name, p in paths.items() if name.endswith("live")]
     kernels = [{
@@ -709,11 +756,12 @@ def run_smoke(baseline=None):
                      + tail["auction_launches"]
                      + tools["auction_launches"]
                      + longrun["auction_launches"]
-                     + obb_sof["auction_launches"]),
+                     + obb_sof["auction_launches"]
+                     + scores["auction_launches"]),
         "max_abs_err": max([max_err, sharded["auction_err"],
                             quantized["auction_err"], tail["auction_err"],
                             tools["auction_err"], longrun["auction_err"],
-                            obb_sof["auction_err"]]
+                            obb_sof["auction_err"], scores["auction_err"]]
                            + [p["auction_err"] for p in motion]
                            + [p["auction"]["auction_err"] for p in live_paths
                               if "auction" in p]),
@@ -765,6 +813,8 @@ def run_smoke(baseline=None):
           f"{longrun['auction_launches']}")
     print(f"launches on phase 24's OBB SORT and live SOF paths: auction "
           f"{obb_sof['auction_launches']}")
+    print(f"launches on phase 25's scoreboard rows: auction "
+          f"{scores['auction_launches']}")
     return kernels, smi
 
 
@@ -866,22 +916,31 @@ def auction_on_path(phase, label, stage_names, run_frame, card,
     each timed beside the plain auction and its bound; returns the
     per-frame sums and the largest difference from the plain auction
     (which must be 0). ``previous`` is as in ``tracker_path``."""
+    with captured_solves() as captured:
+        run_frame()
+    return solves_on_path(phase, label, stage_names, captured, card,
+                          previous)
+
+
+@contextlib.contextmanager
+def captured_solves(when=None):
+    """While inside, the auction kernel's wrapper copies its inputs into
+    the list this yields, on each call for which ``when()`` is true (on
+    every call when ``when`` is None), and solves as it does outside."""
     from motcpp_tpu_torch.ops import auction_cuda
 
-    captured = []
-    solve = auction_cuda.solve
+    captured, solve = [], auction_cuda.solve
 
     def recording_solve(*args):
-        captured.append([t.clone() for t in args])
+        if when is None or when():
+            captured.append([t.clone() for t in args])
         return solve(*args)
 
     auction_cuda.solve = recording_solve
     try:
-        run_frame()
+        yield captured
     finally:
         auction_cuda.solve = solve
-    return solves_on_path(phase, label, stage_names, captured, card,
-                          previous)
 
 
 def solves_on_path(phase, label, stage_names, captured, card,
@@ -2896,25 +2955,20 @@ def watched_service(keep=0, capture_at=None):
     from motcpp_tpu_torch.serving import mux, service
 
     seen = {"launches": [], "dispatch": [], "assemble": [], "fetch": [],
-            "batches": [], "solves": []}
+            "batches": []}
     dispatch = service.TrackingService.step_async
     resolve = service.PendingBatch.result
     assemble = mux.StreamMux.assemble
-    solve = auction_cuda.solve
-
-    def recording_solve(*args):
-        seen["solves"].append([t.clone() for t in args])
-        return solve(*args)
+    capturing = [False]
 
     def counted(self):
         before = auction_cuda.LAUNCHES
-        if len(seen["launches"]) == capture_at:
-            auction_cuda.solve = recording_solve
+        capturing[0] = len(seen["launches"]) == capture_at
         t0 = time.perf_counter()
         try:
             out = dispatch(self)
         finally:
-            auction_cuda.solve = solve
+            capturing[0] = False
         seen["dispatch"].append(time.perf_counter() - t0)
         seen["launches"].append(auction_cuda.LAUNCHES - before)
         return out
@@ -2937,12 +2991,12 @@ def watched_service(keep=0, capture_at=None):
     service.PendingBatch.result = kept
     mux.StreamMux.assemble = timed_assemble
     try:
-        yield seen
+        with captured_solves(lambda: capturing[0]) as seen["solves"]:
+            yield seen
     finally:
         service.TrackingService.step_async = dispatch
         service.PendingBatch.result = resolve
         mux.StreamMux.assemble = assemble
-        auction_cuda.solve = solve
 
 
 def held_to_plain(label, solves):
@@ -2995,9 +3049,10 @@ def serving_tail_phase(phase, card):
         nonlocal launches, max_err
         got, want = seen["launches"], STEP_LAUNCHES[args.tracker]
         split = tick_split(seen, args.warmup)
-        solves = seen["solves"]
-        for name in ("launches", "dispatch", "assemble", "fetch", "solves"):
+        solves = seen["solves"][:]
+        for name in ("launches", "dispatch", "assemble", "fetch"):
             seen[name] = []
+        seen["solves"].clear()  # the list captured_solves appends to
         check(len(solves) == want, f"{label}: {len(solves)} auction solves "
               f"captured in tick {capture_at}, want {want}")
         err = held_to_plain(label, solves)
@@ -3208,12 +3263,12 @@ def attribution_phase(phase, card, block_ms):
 
 def long_horizon_phase(phase, card):
     """Phase ``phase``: motcpp_tpu_torch/scripts/longrun_stability.py in
-    process, its scene made on the card. (a) its defaults: ByteTrack,
-    256 streams, 10000 frames in chunks of 500 through run(), every
-    emitted row finite; (b) OC-SORT over LONG_OC_FRAMES frames (its
-    observation ring wraps); (c) (a)'s first LONG_EQUAL_CHUNKS chunks
-    again as one run() of a fresh runner: masks, ids, boxes and the
-    carried state equal to (a)'s bit for bit; (d) the kernel on the
+    process, its scene made on the card. (a) its defaults but
+    LONG_FRAMES frames: ByteTrack, 256 streams, in chunks of 500 through
+    run(), every emitted row finite; (b) OC-SORT over LONG_OC_FRAMES
+    frames (its observation ring wraps); (c) (a)'s first LONG_EQUAL_CHUNKS
+    chunks again as one run() of a fresh runner: masks, ids, boxes and
+    the carried state equal to (a)'s bit for bit; (d) the kernel on the
     solves of (a)'s last frame held to the plain auction (max abs err 0)
     and timed beside it and its bound; (e) (a), (b) and (c) launch the
     kernel exactly twice a frame; and profiles of 10 frames of (a)'s path
@@ -3226,17 +3281,16 @@ def long_horizon_phase(phase, card):
     from motcpp_tpu_torch.scripts.tracker_fns import build_tracker_fns
 
     t_phase = time.perf_counter()
-    args = longrun.parser().parse_args([])
+    args = longrun.parser().parse_args(["--frames", str(LONG_FRAMES)])
     n_chunks = -(-args.frames // args.chunk)
-    kept, state_at, last, after = [], [], [], []
-    solve = auction_cuda.solve
-    seen = [0]  # solves of (a)'s last chunk so far
+    kept, state_at, after = [], [], []
+    seen = [None]  # solves of (a)'s last chunk so far, once it starts
 
-    def recording_solve(*a):
+    def last_frame():  # the last frame's two solves
+        if seen[0] is None:
+            return False
         seen[0] += 1
-        if seen[0] > 2 * (args.chunk - 1):  # the last frame's two solves
-            last.append([t.clone() for t in a])
-        return solve(*a)
+        return seen[0] > 2 * (args.chunk - 1)
 
     def on_chunk(c, runner, dets, masks, outs, out_masks):
         if c < LONG_EQUAL_CHUNKS:
@@ -3247,20 +3301,23 @@ def long_horizon_phase(phase, card):
             after.extend([(dets[:10], masks[:10]), (dets[10:20],
                                                     masks[10:20])])
         if c == n_chunks - 2:
-            auction_cuda.solve = recording_solve
+            seen[0] = 0
 
     split, launches = {}, {}
     for key, argv, hook in (
-            ("a", [], on_chunk),
+            ("a", ["--frames", str(LONG_FRAMES)], on_chunk),
             ("b", ["--tracker", "ocsort", "--frames", str(LONG_OC_FRAMES)],
              None)):
         auction_cuda.LAUNCHES = 0
         t0 = time.perf_counter()
         try:
-            rep = longrun.run(longrun.parser().parse_args(argv),
-                              on_chunk=hook)
+            with captured_solves(last_frame) as got:
+                rep = longrun.run(longrun.parser().parse_args(argv),
+                                  on_chunk=hook)
         finally:
-            auction_cuda.solve = solve
+            seen[0] = None
+        if key == "a":
+            last = got
         split[key] = time.perf_counter() - t0
         launches[key] = auction_cuda.LAUNCHES
         label = f"({key}) {rep['tracker']}"
@@ -3537,6 +3594,344 @@ def obb_sof_phase(phase, card):
     return dict(stats, auction_launches=total,
                 auction_err=max(stats["auction_err"],
                                 sof_stats["auction_err"]))
+
+
+def host_scoreboard(trackers):
+    """The scoreboard's ``trackers`` at SCORE_FRAMES on the host through
+    the plain auction, at one torch thread: phase 25 (c)'s rows, run in a
+    worker process beside the card's rows. Returns the rows and their
+    seconds."""
+    from motcpp_tpu_torch.scripts.ablation_benchmark import run_scoreboard
+
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    rows = run_scoreboard(SCORE_FRAMES, list(trackers), progress=len,
+                          device="cpu", lap_impl="auction")
+    return rows, time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def watched_scoreboard(capture=()):
+    """While inside: each tracker that ``motcpp_tpu_torch.create_tracker``
+    builds records, per ``update()``, its output, its auction launches
+    and its wall seconds (``seen["rows"]``, one dict a tracker in the
+    order they are built), and the scoreboard's metrics their wall
+    seconds (``seen["metrics_s"]``); for each (model, frame) in
+    ``capture``, the auction kernel's inputs in that frame of the first
+    tracker of that model are copied into ``seen["solves"][(model,
+    frame)]``."""
+    import motcpp_tpu_torch
+    from motcpp_tpu_torch import metrics
+    from motcpp_tpu_torch.ops import auction_cuda
+
+    seen = {"rows": [], "metrics_s": [0.0], "solves": {}}
+    create = motcpp_tpu_torch.create_tracker
+    scores = {n: getattr(metrics, n) for n in
+              ("clear_metrics", "identity_metrics", "hota_metrics")}
+
+    def watched(model, **kw):
+        tracker = create(model, **kw)
+        row = {"model": model, "outs": [], "launches": [], "update_s": 0.0}
+        seen["rows"].append(row)
+        update = tracker.update
+
+        def recorded(*args, **kwargs):
+            key = (model, len(row["outs"]) + 1)
+            before = auction_cuda.LAUNCHES
+            t0 = time.perf_counter()
+            if key in capture and key not in seen["solves"]:
+                with captured_solves() as seen["solves"][key]:
+                    out = update(*args, **kwargs)
+            else:
+                out = update(*args, **kwargs)
+            row["update_s"] += time.perf_counter() - t0
+            row["launches"].append(auction_cuda.LAUNCHES - before)
+            row["outs"].append(out)
+            return out
+
+        tracker.update = recorded
+        return tracker
+
+    def timed(fn):
+        def score(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                seen["metrics_s"][0] += time.perf_counter() - t0
+        return score
+
+    motcpp_tpu_torch.create_tracker = watched
+    for name, fn in scores.items():
+        setattr(metrics, name, timed(fn))
+    try:
+        yield seen
+    finally:
+        motcpp_tpu_torch.create_tracker = create
+        for name, fn in scores.items():
+            setattr(metrics, name, fn)
+
+
+@contextlib.contextmanager
+def scene_once():
+    """While inside, ``data/synthetic.py::ablation_scene`` makes each
+    length of scene once and hands the same one to every later call (the
+    scoreboard's runs only read it)."""
+    from motcpp_tpu_torch.data import synthetic
+
+    make, scenes = synthetic.ablation_scene, {}
+
+    def scene(n_frames):
+        if n_frames not in scenes:
+            scenes[n_frames] = make(n_frames=n_frames)
+        return scenes[n_frames]
+
+    synthetic.ablation_scene = scene
+    try:
+        yield
+    finally:
+        synthetic.ablation_scene = make
+
+
+def card_probes():
+    """Phase 25 (b) and (d) on the card, in a worker process beside (a):
+    SCORE_POINTS through the auction kernel, every priority selection
+    also made on the host, then BoostTrack's plain row again. Returns
+    each point's (tracker, probe, metrics, row record without its
+    outputs), the frames whose selection differed, BoostTrack's metrics
+    and row record, the kernel launches of (b) (the worker's count, from
+    0; (d) is a comparison and not counted) and the seconds of both."""
+    from motcpp_tpu_torch.ops import auction_cuda
+    from motcpp_tpu_torch.scripts import ablation_benchmark as ab
+
+    torch.set_num_threads(1)
+    kernel = dict(device="cuda", lap_impl="auction_pallas")
+    select, differ, points, split = ab.budget_select, [], [], {}
+
+    def held_select(d_now, prev_d, t, f, policy, device):
+        sel = select(d_now, prev_d, t, f, policy, device)
+        if not np.array_equal(sel, select(d_now, prev_d, t, f, policy,
+                                          "cpu")):
+            differ.append(t)
+        return sel
+
+    auction_cuda.LAUNCHES = 0
+    ab.budget_select = held_select
+    try:
+        with scene_once():
+            t0 = time.perf_counter()
+            for names, probe in SCORE_POINTS:
+                with watched_scoreboard() as seen:
+                    got = ab.run_scoreboard(SCORE_FRAMES, list(names),
+                                            progress=len, **probe, **kernel)
+                points += [(name, probe, m, dict(row, outs=None))
+                           for (name, m), row in zip(got.items(),
+                                                     seen["rows"])]
+            split["b"] = time.perf_counter() - t0
+            launches = auction_cuda.LAUNCHES
+            t0 = time.perf_counter()
+            with watched_scoreboard() as seen:
+                again = ab.run_scoreboard(SCORE_FRAMES, ["boosttrack"],
+                                          progress=len, **kernel)
+            split["d"] = time.perf_counter() - t0
+    finally:
+        ab.budget_select = select
+    return dict(points=points, differ=differ, again=again["boosttrack"],
+                again_row=seen["rows"][0], launches=launches, split=split)
+
+
+def scale_bars(r):
+    """The JAX package's orderings and scale bars on the scoreboard's rows
+    ``r`` (tests/test_accuracy_ablation.py::test_reference_band_orderings
+    and test_no_warmup_collapse_at_scale)."""
+    check(r["bytetrack"]["HOTA"] > r["sort"]["HOTA"] + 2
+          and r["bytetrack"]["IDF1"] > r["sort"]["IDF1"] + 4,
+          "(a) ByteTrack not above SORT on HOTA and IDF1")
+    for name in ("ocsort", "ucmctrack"):
+        check(r[name]["HOTA"] > r["sort"]["HOTA"]
+              and r["bytetrack"]["HOTA"] - r[name]["HOTA"] < 8,
+              f"(a) {name} outside the band below ByteTrack")
+    check(abs(r["ocsort"]["HOTA"] - r["ucmctrack"]["HOTA"]) < 5,
+          "(a) OC-SORT and UCMCTrack not within 5 HOTA")
+    band = ("sort", "bytetrack", "ocsort", "ucmctrack")
+    check(r["sort"]["IDF1"] == min(r[k]["IDF1"] for k in band)
+          and r["sort"]["IDSW"] == max(r[k]["IDSW"] for k in band),
+          "(a) SORT not the lowest IDF1 and most IDSW of the band")
+    for name in ("strongsort", "ucmctrack"):
+        check(r[name]["MT"] >= 50
+              and r[name]["HOTA"] >= r["bytetrack"]["HOTA"] - 12,
+              f"(a) {name} collapses at scale: {r[name]}")
+    for name, m in r.items():
+        check(m["MT"] >= 40 and m["ML"] <= 10 and m["HOTA"] >= 60,
+              f"(a) {name} tracks too few identities: {m}")
+
+
+def scoreboard_phase(phase, card):
+    """Phase ``phase``: motcpp_tpu_torch/scripts/ablation_benchmark.py in
+    process on the card through the auction kernel (lap_impl=
+    "auction_pallas") at SCORE_FRAMES frames. (a) every SCOREBOARD row:
+    each row the JAX package commits (tests/accuracy_ablation.json) within
+    SCORE_HOTA_BAR HOTA of it, MOTA, IDF1, DetA, AssA and IDSW printed
+    beside it, the JAX package's scale assertions on every row
+    (scale_bars), each row's seconds, its update() calls' share, its
+    launches a frame, and the scoring's seconds; (b) bench.py's DEPLOYED
+    points (SCORE_POINTS), each within SCORE_HOTA_BAR of its committed row
+    (tests/accuracy_cadence.json, tests/accuracy_budget.json), its cost
+    against (a)'s every-frame row printed beside the committed cost, and
+    every frame's priority selection on the card equal to the host's; (c)
+    SCORE_HOST_ROWS on the host through the plain auction: the card's rows
+    within SCORE_HOST_ATOL on HOTA, MOTA, IDF1, DetA and AssA; (d)
+    BoostTrack again on the card: metrics and every update()'s output
+    identical to (a)'s; (e) the kernel on the solves of the middle frame
+    of each SCORE_SOLVE_ROWS row held to the plain auction (max abs err
+    0) and timed beside it and its bound. (b) with (d) (card_probes) and
+    (c) (host_scoreboard) run in two spawned worker processes while this
+    one runs (a): the paths are bound by the host's launches, and the
+    card takes the two processes' kernels in turn. Returns the launches
+    of (a) and (b), each process's counted from 0 ((d) is a
+    comparison), and (e)'s largest difference."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from motcpp_tpu_torch.ops import auction_cuda
+    from motcpp_tpu_torch.scripts import ablation_benchmark as ab
+
+    t_phase = time.perf_counter()
+    committed = json.loads((TESTS / "accuracy_ablation.json").read_text())
+    cadence = json.loads((TESTS / "accuracy_cadence.json").read_text())
+    budget = json.loads((TESTS / "accuracy_budget.json").read_text())
+    keys = ("HOTA", "MOTA", "IDF1", "DetA", "AssA")
+    middle = SCORE_FRAMES // 2
+
+    def rows_line(label, got, want=None):
+        """got's metrics, want's beside them where given."""
+        def cell(k):
+            return (f"{k} {got[k]}" if want is None or k not in want
+                    else f"{k} {got[k]} ({want[k]})")
+        return (f"phase {phase} {label}: "
+                + ", ".join(cell(k) for k in keys + ("IDSW", "MT", "ML")))
+
+    def row_stats(row):
+        n = len(row["launches"])
+        check(n == SCORE_FRAMES, f"{row['model']}: {n} update() calls, want "
+              f"{SCORE_FRAMES}")
+        per = np.asarray(row["launches"])
+        check(per.min() >= 1, f"{row['model']}: a frame without an auction "
+              "kernel launch")
+        return (f"{per.sum()} launches ({per.min()}-{per.max()} a frame), "
+                f"update() {row['update_s']:.1f} s "
+                f"({1e3 * row['update_s'] / n:.2f} ms a frame)")
+
+    with ProcessPoolExecutor(
+            2, mp_context=multiprocessing.get_context("spawn")) as pool:
+        host = pool.submit(host_scoreboard, SCORE_HOST_ROWS)
+        probes = pool.submit(card_probes)
+
+        # ---- (a) every row through the kernel --------------------------
+        auction_cuda.LAUNCHES = 0
+        t0 = time.perf_counter()
+        row_s, last = [], [t0]
+
+        def progress(line):
+            now = time.perf_counter()
+            row_s.append(now - last[0])
+            last[0] = now
+
+        with watched_scoreboard(capture=tuple(
+                (model, middle) for model in SCORE_SOLVE_ROWS)) as seen:
+            rows = ab.run_scoreboard(SCORE_FRAMES, progress=progress,
+                                     device="cuda", lap_impl="auction_pallas")
+        launches = auction_cuda.LAUNCHES
+        a_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        probed = probes.result()
+        host_rows, host_s = host.result()
+        wait_s = time.perf_counter() - t0
+
+    check(list(rows) == list(ab.SCOREBOARD), f"(a) rows {list(rows)}")
+    for (name, m), row, s in zip(rows.items(), seen["rows"], row_s):
+        want = committed.get(name)
+        print(rows_line(f"(a) {name}", m, want) + f"; {s:.1f} s, "
+              + row_stats(row) + f"; card: {card}", flush=True)
+        if want is not None:
+            check(abs(m["HOTA"] - want["HOTA"]) <= SCORE_HOTA_BAR,
+                  f"(a) {name}: HOTA {m['HOTA']} against the committed "
+                  f"{want['HOTA']} (bar {SCORE_HOTA_BAR})")
+    scale_bars(rows)
+    print(f"phase {phase} (a) the JAX package's orderings and scale bars "
+          f"hold on every row; {a_s:.1f} s, the scoring "
+          f"{seen['metrics_s'][0]:.1f} s of it", flush=True)
+
+    # ---- (b) the deployed points -------------------------------------
+    for name, probe, m, row in probed["points"]:
+        if "emb_cadence" in probe:
+            want = cadence[name][str(probe["emb_cadence"])]
+            point = f"cadence {probe['emb_cadence']}"
+        else:
+            point = f"priority_{probe['emb_budget']}"
+            want = budget[name][point]
+        base = cadence[name]["1"]["HOTA"]
+        print(rows_line(f"(b) {name} {point}", m, want)
+              + f"; cost {rows[name]['HOTA'] - m['HOTA']:.2f} against (a)'s "
+              f"every-frame row (committed {base - want['HOTA']:.2f}; "
+              f"bench.py's line 1.0); " + row_stats(row) + f"; card: {card}",
+              flush=True)
+        check(abs(m["HOTA"] - want["HOTA"]) <= SCORE_HOTA_BAR,
+              f"(b) {name} {point}: HOTA {m['HOTA']} against the committed "
+              f"{want['HOTA']}")
+    check(not probed["differ"], f"(b) the card's priority selection differs "
+          f"from the host's at frames {probed['differ'][:10]}")
+    print(f"phase {phase} (b) every frame's priority selection on the card "
+          f"= the host's; {probed['split']['b']:.1f} s in the worker",
+          flush=True)
+
+    # ---- (c) the host's plain-auction rows ----------------------------
+    for name in SCORE_HOST_ROWS:
+        diff = {k: round(rows[name][k] - host_rows[name][k], 2) for k in keys}
+        print(rows_line(f"(c) {name} card", rows[name], host_rows[name])
+              + f"; card less host {diff}", flush=True)
+        check(all(abs(d) <= SCORE_HOST_ATOL for d in diff.values()),
+              f"(c) {name}: the card's row is off the host's by {diff}")
+    print(f"phase {phase} (c) the host's rows took {host_s:.1f} s in the "
+          f"worker", flush=True)
+
+    # ---- (d) BoostTrack again, in the worker: the same rows -------------
+    boost = seen["rows"][list(rows).index("boosttrack")]
+    check(probed["again"] == rows["boosttrack"],
+          f"(d) BoostTrack's metrics moved: {probed['again']} against "
+          f"{rows['boosttrack']}")
+    moved = [t + 1 for t, (x, y) in enumerate(
+        zip(probed["again_row"]["outs"], boost["outs"]))
+        if x.shape != y.shape or not np.array_equal(
+            x.view(np.int32), y.view(np.int32))]
+    check(not moved, f"(d) BoostTrack's rows moved at frames {moved[:10]}")
+    print(f"phase {phase} (d) BoostTrack again on the card, in the worker "
+          f"process: metrics and all {SCORE_FRAMES} frames' rows identical "
+          f"bit for bit; {probed['split']['d']:.1f} s", flush=True)
+
+    # ---- (e) the kernel on each SCORE_SOLVE_ROWS row's middle frame ------
+    err = 0
+    for model in SCORE_SOLVE_ROWS:
+        solves = seen["solves"].get((model, middle))
+        check(solves, f"(e) no solve captured in {model}'s frame {middle}")
+        shapes = sorted({tuple(args[0].shape) for args in solves})
+        check(all(P == 1 for P, _, _ in shapes),
+              f"(e) {model}: solves of {shapes}, want one problem each")
+        lane = {n: next(t for t in (1, 2, 4, 8) if n <= 32 * t)
+                for _, _, n in shapes}  # the kernel's columns a lane
+        layout = ", ".join(f"(1, {k}, {n}) with {lane[n]} columns a lane"
+                           for _, k, n in shapes)
+        err = max(err, solves_on_path(
+            phase, f"{model} scoreboard frame {middle} ({layout}; P=1: "
+            "the eight-warp layout)", [f"solve {i + 1}" for i in
+                                       range(len(solves))], solves,
+            card)["auction_err"])
+    total = launches + probed["launches"]
+    print(f"phase {phase} wall time {time.perf_counter() - t_phase:.1f} s: "
+          f"(a) {a_s:.1f}, then waited {wait_s:.1f} for the workers; "
+          f"auction launches (a) {launches}, (b) {probed['launches']} ((d)'s "
+          f"comparison not counted); card: {card}", flush=True)
+    return {"auction_launches": total, "auction_err": err}
 
 
 def main(argv=None):

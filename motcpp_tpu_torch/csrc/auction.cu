@@ -113,7 +113,7 @@ __host__ __device__ __forceinline__ size_t list_bytes(int K) {
 
 // Columns a warp's lanes hold: 32 T.
 __host__ __device__ __forceinline__ int lane_cols(int N) {
-  return N <= 32 ? 32 : N <= 64 ? 64 : 128;
+  return N <= 32 ? 32 : N <= 64 ? 64 : N <= 128 ? 128 : 256;
 }
 
 // One problem's slot: its tile and, per warp on it, a list of up to K
@@ -493,7 +493,7 @@ struct Shape {
 };
 
 Shape one_warp_shape(const void* kernel, int K, int N, cudaError_t* err) {
-  static Shape chosen[257][129];
+  static Shape chosen[257][257];  // by K and N, each up to 256
   if (chosen[K][N].warps) return chosen[K][N];
   Shape best{1, 0, 0};
   int device = 0;
@@ -548,8 +548,9 @@ int launch(const float* cost, const unsigned char* row_mask,
   const Shape one = one_warp_shape(
       reinterpret_cast<const void*>(auction_kernel<T, KW, 1>), K, N, &err);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int vec16 =
-      N % 4 == 0 && reinterpret_cast<std::uintptr_t>(cost) % 16 == 0;
+  // 16-byte copies take a chunk a lane, so a row of at most 32 chunks
+  const int vec16 = N % 4 == 0 && N <= 128 &&
+                    reinterpret_cast<std::uintptr_t>(cost) % 16 == 0;
   // One warp a problem while the problems fill a wave of the card and an
   // SM holds more than one; otherwise kGroup warps on each problem.
   if (one.resident > 1 && P >= one.sms * one.resident)
@@ -577,7 +578,10 @@ int launch_n(const float* cost, const unsigned char* row_mask,
   if (N <= 64)
     return launch<2, KW>(cost, row_mask, col_mask, thresh, P, K, N, eps_frac,
                          max_rounds, row2col, col2row, stream);
-  return launch<4, KW>(cost, row_mask, col_mask, thresh, P, K, N, eps_frac,
+  if (N <= 128)
+    return launch<4, KW>(cost, row_mask, col_mask, thresh, P, K, N, eps_frac,
+                         max_rounds, row2col, col2row, stream);
+  return launch<8, KW>(cost, row_mask, col_mask, thresh, P, K, N, eps_frac,
                        max_rounds, row2col, col2row, stream);
 }
 
@@ -586,15 +590,20 @@ int launch_n(const float* cost, const unsigned char* row_mask,
 extern "C" {
 
 // Bytes of dynamic shared memory one problem of shape (K, N) needs when
-// one warp solves it.
-size_t auction_smem_bytes(int K, int N) { return slot_bytes(K, N, 1); }
+// kGroup warps solve it, the most of either launch; a shape takes the
+// kernel where this is at most kMaxSmem.
+size_t auction_smem_bytes(int K, int N) { return slot_bytes(K, N, kGroup); }
 
-// Solves P problems on `stream`; returns the CUDA error of the launch.
+// Solves P problems on `stream`; returns the CUDA error of the launch,
+// cudaErrorInvalidValue for a shape the kernel does not take.
 int auction_solve(const float* cost, const unsigned char* row_mask,
                   const unsigned char* col_mask, const float* thresh, int P,
                   int K, int N, float eps_frac, int max_rounds, int* row2col,
                   int* col2row, void* stream) {
   if (P == 0) return 0;
+  if (K < 1 || K > 256 || N < 1 || N > 256 ||
+      slot_bytes(K, N, kGroup) > kMaxSmem)
+    return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   if (K <= 64)
     return launch_n<2>(cost, row_mask, col_mask, thresh, P, K, N, eps_frac,

@@ -25,7 +25,11 @@ SOURCE = cuda_build.CSRC / "auction.cu"
 NVCC_FLAGS = (*cuda_build.ARCH_FLAGS, "-O3", "-fmad=false", "-Xptxas", "-v",
               *cuda_build.SHARED_FLAGS)
 MAX_K = 256
-MAX_N = 128
+MAX_N = 256
+#: warps on one problem where few problems fill the card (kGroup)
+GROUP = 8
+#: bytes of shared memory one CTA can take on an H100 (kMaxSmem, 227 KB)
+MAX_SMEM = 232448
 
 #: kernel launches since the last reset; ``solve`` adds one per launch
 LAUNCHES = 0
@@ -55,6 +59,19 @@ def _load():
     return _lib
 
 
+def smem_bytes(K: int, N: int) -> int:
+    """Bytes of dynamic shared memory one (K, N) problem takes with GROUP
+    warps on it, the most of the kernel's two launches
+    (``csrc/auction.cu::slot_bytes``): the tile, a row list a warp, and
+    two rounds of each warp's bids over the columns its lanes hold."""
+    def up16(b):
+        return (b + 15) // 16 * 16
+
+    lane_cols = 32 if N <= 32 else 64 if N <= 64 else 128 if N <= 128 else 256
+    return (up16(4 * K * N) + GROUP * up16(4 * (K + 8))
+            + 2 * GROUP * (8 * lane_cols + 128) + 128)
+
+
 def _check(cost, row_mask, col_mask, thresh):
     if cost.dim() != 3:
         raise ValueError(f"cost must be (P, K, N), got {tuple(cost.shape)}")
@@ -63,6 +80,12 @@ def _check(cost, row_mask, col_mask, thresh):
         raise ValueError(
             f"the auction kernel takes 1 <= K <= {MAX_K} and "
             f"1 <= N <= {MAX_N}, got K={K}, N={N}"
+        )
+    if smem_bytes(K, N) > MAX_SMEM:
+        raise ValueError(
+            f"the auction kernel holds a problem's whole tile in shared "
+            f"memory: K={K}, N={N} takes {smem_bytes(K, N)} bytes, a CTA "
+            f"at most {MAX_SMEM}"
         )
     want = {"cost": (cost, torch.float32, (P, K, N)),
             "row_mask": (row_mask, torch.bool, (P, K)),

@@ -61,11 +61,45 @@ def assert_kernel_equals_plain(cuda, args):
 
 @pytest.mark.parametrize("shape", [(512, 64, 32), (64, 128, 64),
                                    (64, 128, 128), (32, 256, 128), (3, 1, 1),
-                                   (256, 64, 16), (4096, 64, 32)])
+                                   (256, 64, 16), (4096, 64, 32),
+                                   (2, 96, 192), (2, 192, 96),
+                                   (64, 96, 192), (8, 128, 256),
+                                   (4096, 32, 160), (2, 188, 254),
+                                   (2, 256, 184), (2, 186, 256)])
 def test_auction_kernel_matches_plain_version(cuda, shape):
     """Few problems get several warps each, a full wave one warp each
-    (4096 at K=64, N=32, as on ByteTrack's main path)."""
+    (4096 at K=64, N=32, as on ByteTrack's main path); the ablation
+    scoreboard's one-stream solves, detections by tracks (96, 192) and
+    tracks by detections (192, 96), and columns past 128, where a lane
+    holds eight, up to the largest tiles the wrapper takes (the most
+    K * N, 188 x 254, the most N at K=256 and the most K at N=256)."""
     assert_kernel_equals_plain(cuda, problems(sum(shape), *shape))
+
+
+@pytest.mark.parametrize("first,second", [
+    ((400, 97, 63), (400, 96, 192)), ((1200, 41, 71), (1200, 40, 200)),
+    ((2, 255, 31), (2, 256, 160))])
+def test_auction_kernel_keeps_each_shapes_launch_shape(cuda, first, second):
+    """The launch shape found for (K + 1, N - 129) is not taken for
+    (K, N > 128) solved after it in the same process, nor written past the
+    cache at K=256; the second's P reaches its one-warp layout."""
+    for shape in (first, second):
+        assert_kernel_equals_plain(cuda, problems(sum(shape), *shape))
+
+
+def test_auction_library_agrees_on_the_tiles_it_takes(cuda):
+    """The wrapper's count of a problem's shared memory is the kernel
+    library's, and the library itself refuses a tile past the CTA's."""
+    lib = auction_cuda._load()
+    for K in (1, 8, 31, 64, 96, 128, 188, 192, 256):
+        for N in (1, 16, 32, 33, 64, 65, 128, 129, 192, 254, 256):
+            want = auction_cuda.smem_bytes(K, N)
+            assert lib.auction_smem_bytes(K, N) == want
+    assert auction_cuda.smem_bytes(189, 254) > auction_cuda.MAX_SMEM
+    invalid_value = 1  # cudaErrorInvalidValue
+    for K, N in ((189, 254), (256, 185), (257, 8), (8, 257)):
+        assert lib.auction_solve(None, None, None, None, 1, K, N, 0.0, 1,
+                                 None, None, None) == invalid_value
 
 
 @pytest.mark.parametrize("case", sorted(EDGE_CASES))
@@ -1275,3 +1309,75 @@ def test_rollout_on_the_card_equals_its_deterministic_run(cuda, tracker):
     assert int(m1.sum()) > 0
     assert same_bits(m1, m2) and same_bits(o1, o2)
     assert all(same_bits(a, b) for a, b in zip(s1, s2))
+
+
+def test_scoreboard_row_on_the_card_equals_the_hosts_plain_auction(cuda):
+    """ByteTrack's ablation scoreboard row at 150 frames on the card
+    through the auction kernel: the metrics of the same row on the host
+    through the plain auction, one kernel launch a stage a frame."""
+    from motcpp_tpu_torch.scripts import ablation_benchmark as tool
+
+    before = auction_cuda.LAUNCHES
+    card = tool.run_scoreboard(150, ["bytetrack"], progress=len,
+                               device=cuda, lap_impl="auction_pallas")
+    assert auction_cuda.LAUNCHES - before == 2 * 150
+    host = tool.run_scoreboard(150, ["bytetrack"], progress=len,
+                               device="cpu", lap_impl="auction")
+    assert card == host
+
+
+def test_ablation_tool_runs_on_the_card_through_the_kernel(cuda, capsys):
+    from motcpp_tpu_torch.scripts import ablation_benchmark as tool
+
+    before = auction_cuda.LAUNCHES
+    assert tool.main(["--frames", "150", "--trackers", "sort",
+                      "--lap", "auction_pallas"]) == 0
+    assert auction_cuda.LAUNCHES - before == 150
+    assert capsys.readouterr().out.startswith("sort ")
+
+
+@pytest.mark.parametrize("tracker,probe", [
+    ("ucmctrack", {}), ("deepocsort", {}), ("botsort", {}),
+    ("boosttrack", {}), ("hybridsort", {}),
+    ("strongsort", {"emb_budget": 0.6})])
+def test_scoreboard_row_on_the_card_equals_its_deterministic_run(
+        cuda, tracker, probe, monkeypatch):
+    """A scoreboard row at 150 frames under
+    torch.use_deterministic_algorithms(True) emits the default run's rows
+    bit for bit: no step of these trackers writes through a scatter whose
+    winner the card leaves open (ByteTrack, OC-SORT and OBB SORT are held
+    above)."""
+    import motcpp_tpu_torch
+    from motcpp_tpu_torch.scripts import ablation_benchmark as tool
+
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    create = motcpp_tpu_torch.create_tracker
+    runs = []
+    for deterministic in (False, True):
+        outs = []
+
+        def recording(model, **kw):
+            tracker = create(model, **kw)
+            update = tracker.update
+
+            def recorded(*args, **kwargs):
+                outs.append(update(*args, **kwargs))
+                return outs[-1]
+
+            tracker.update = recorded
+            return tracker
+
+        monkeypatch.setattr(motcpp_tpu_torch, "create_tracker", recording)
+        torch.use_deterministic_algorithms(deterministic)
+        try:
+            metrics = tool.run_scoreboard(150, [tracker], progress=len,
+                                          device=cuda,
+                                          lap_impl="auction_pallas", **probe)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        runs.append((metrics, outs))
+    (m1, o1), (m2, o2) = runs
+    assert m1 == m2 and len(o1) == len(o2) == 150
+    assert all(a.shape == b.shape and np.array_equal(a.view(np.int32),
+                                                     b.view(np.int32))
+               for a, b in zip(o1, o2))

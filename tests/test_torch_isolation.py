@@ -320,3 +320,29 @@ def test_sharded_entry_points_raise_without_cuda(no_cuda):
     for call in (dryrun_multihost, lambda: dryrun_multihost(2, "cuda")):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()  # the default is the card, and no worker starts
+
+
+def test_ablation_scoreboard_defaults_to_cuda_and_raises_without_it(
+        no_cuda, monkeypatch, tmp_path):
+    """The ablation scoreboard is in the isolation checks' scope, runs on
+    the card and, without --cpu (or a device), raises where there is none,
+    before it builds its scene or writes its table."""
+    from motcpp_tpu_torch.scripts import ablation_benchmark
+
+    assert "ablation_benchmark.py" in {
+        p.name for p in PORT_FILES if p.parent.name == "scripts"}
+
+    def no_scene(*args, **kwargs):
+        raise AssertionError("the scene was built")
+
+    monkeypatch.setattr("motcpp_tpu_torch.data.synthetic.ablation_scene",
+                        no_scene)
+    monkeypatch.setattr(ablation_benchmark, "TABLE", tmp_path / "t.json")
+    for call in (lambda: ablation_benchmark.run_scoreboard(150),
+                 lambda: ablation_benchmark.main(["--frames", "150",
+                                                  "--write"]),
+                 lambda: ablation_benchmark.budget_select(
+                     np.zeros((2, 6), np.float32), None, 1, 0.5)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert not (tmp_path / "t.json").exists()

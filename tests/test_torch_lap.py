@@ -135,7 +135,7 @@ def test_kernel_wrapper_takes_plain_version_on_cpu():
 
 
 @pytest.mark.parametrize("bad", ["rows", "cols", "dtype", "mask", "strided",
-                                 "thresh"])
+                                 "thresh", "smem"])
 def test_kernel_wrapper_rejects_what_the_kernel_does_not_take(bad):
     P, K, N = 2, 8, 4
     cost = torch.rand(P, K, N)
@@ -145,14 +145,33 @@ def test_kernel_wrapper_rejects_what_the_kernel_does_not_take(bad):
     if bad == "rows":
         cost, rm = torch.rand(P, 257, N), torch.ones(P, 257, dtype=torch.bool)
     elif bad == "cols":
-        cost, cm = torch.rand(P, K, 129), torch.ones(P, 129, dtype=torch.bool)
+        cost, cm = torch.rand(P, K, 257), torch.ones(P, 257, dtype=torch.bool)
     elif bad == "dtype":
         cost = cost.double()
     elif bad == "mask":
         rm = rm.to(torch.uint8)
     elif bad == "strided":
         cost = torch.rand(P, N, K).transpose(1, 2)
+    elif bad == "smem":  # K and N each in range, the tile past 227 KB
+        cost = torch.rand(P, 256, 185)
+        rm = torch.ones(P, 256, dtype=torch.bool)
+        cm = torch.ones(P, 185, dtype=torch.bool)
     else:
         th = th[:1]
     with pytest.raises(ValueError):
         auction_cuda.solve(cost, rm, cm, th)
+
+
+@pytest.mark.parametrize("K,N", [(188, 254), (256, 184), (186, 256)])
+def test_kernel_wrapper_takes_the_largest_tiles_that_fit(K, N):
+    """The most K * N the kernel takes, the most N at K=256 and the most
+    K at N=256: each fits a CTA's shared memory and one more row or
+    column does not."""
+    assert auction_cuda.smem_bytes(K, N) <= auction_cuda.MAX_SMEM
+    for k, n in ((K + 1, N), (K, N + 1)):
+        if k <= auction_cuda.MAX_K and n <= auction_cuda.MAX_N:
+            assert auction_cuda.smem_bytes(k, n) > auction_cuda.MAX_SMEM
+    cost, rm, cm = problems(K + N, 2, K, N)
+    args = (torch.from_numpy(cost), torch.from_numpy(rm),
+            torch.from_numpy(cm), torch.full((2,), 0.8))
+    assert_same(auction_cuda.solve(*args), auction.solve_lap_auction(*args))

@@ -16,8 +16,10 @@ the serving tail-latency harness and the SLO sweep, and the
 time-attribution tools (the per-piece OSNet profile, the stage
 microbenchmarks, the stage ablation and the select microbench), the
 long-horizon streaming tool, oriented-box SORT and the live sparse-flow
-leg, and the ablation accuracy scoreboard with its cadence and
-priority-budget probes, and checks what they emit. The trackers are
+leg, the ablation accuracy scoreboard with its cadence and
+priority-budget probes, and the accuracy and evaluation tools (the
+synthetic benchmark, run_benchmark.sh, the golden regenerators and the
+demo-GIF tool's tracking), and checks what they emit. The trackers are
 built at the scoreboard's configurations by
 ``motcpp_tpu_torch/scripts/tracker_fns.py``.
 
@@ -132,17 +134,18 @@ timings, so those compare float32 arithmetic. Phases:
      frame, the dense one's rows bit for bit, and two step_async ticks
      in flight equal two step() calls; FrameTimer times the same ticks;
  18. the utilities: (a) whether PyYAML imports here, the nine configs
-     through the port's reader, and scripts/tune.py's loop for ByteTrack
-     (max_dets=max_tracks=128, the auction kernel) over MOT17-mini's
-     first 8 frames for the YAML defaults and 3 seeded draws, scored by
-     the port's metrics: rows and HOTA, MOTA, IDF1 equal to the same
-     loop on the CPU (the plain auction); (b) the eval CLI writes the
-     tests/golden_long sets (--no-ablation --limit-frames 150,
-     max_dets=max_tracks=128) of SORT, ByteTrack, OC-SORT, StrongSORT and
-     BoT-SORT (tests/test_torch_cuda.py runs the other four through the
-     CLI on the card) through the native writer, byte for byte, and
-     their scores equal tests/accuracy_mot17mini.json, with the wall
-     time; (c) checkpoint failover through TrackingService in
+     through the port's reader, and scripts/tune.py::evaluate_params
+     for ByteTrack (max_dets=max_tracks=128, the auction kernel) over
+     MOT17-mini's first 8 frames for the YAML defaults and 3 seeded
+     draws, scored by the port's metrics: rows and HOTA, MOTA, IDF1
+     equal to the same loop on the CPU (the plain auction); (b)
+     scripts/regen_golden.py (the eval CLI) writes the tests/golden_long
+     sets (--no-ablation --limit-frames 150, max_dets=max_tracks=128) of
+     SORT, ByteTrack, OC-SORT, StrongSORT and BoT-SORT, a spawned
+     process a set (tests/test_torch_cuda.py runs the other four through
+     the CLI on the card) through the native writer, byte for byte, and their
+     scores (scripts/update_accuracy_table.py) equal
+     tests/accuracy_mot17mini.json, with the wall time; (c) checkpoint failover through TrackingService in
      both formats (.npz and a torch file): the ByteTrack flagship (S=4096,
      phase 3's frames, 20 ticks cut after 10) and BoT-SORT live ReID at
      cadence 8 (phase 7's shape and crops, 16 ticks cut after 8, a
@@ -278,13 +281,35 @@ timings, so those compare float32 arithmetic. Phases:
      frames (tracks by detections, (1, 192, 96), and detections by
      tracks, (1, 96, 192), eight columns a lane) against the plain
      auction (max abs err 0), beside its bound. (d) is a comparison:
-     its launches are not counted.
+     its launches are not counted;
+ 26. the accuracy and evaluation tools of motcpp_tpu_torch/scripts/, in
+     process: (a) synthetic_benchmark.py at its defaults (nine trackers,
+     300 frames, 24 objects, max_tracks=64, max_dets=48, one stream)
+     through the auction kernel, one task a row in a pool of five
+     spawned processes, every row launching it, its table, each row's
+     seconds and launches; ByteTrack and BoostTrack also on the host
+     through the plain auction in the same pool, the card's rows within
+     0.5 on HOTA, MOTA, IDF1, DetA and AssA; (b) the kernel on
+     ByteTrack's frame-150 solves against the plain auction (max abs err
+     0), beside its bound; (c) the tune loop is phase 18 (a). While the
+     pool runs (a), this process runs (d)-(f): (d) run_benchmark.sh (TRACKERS=bytetrack, CLI_FLAGS="--lap
+     auction_pallas") over MOT17-mini in a subprocess: result files equal
+     to the host CLI's (--cpu --lap auction_pallas) byte for byte, its
+     eval table equal to eval_mot's on them; (e) regen_golden.py's nine
+     tests/golden sets (exact JV) and regen_golden_cmc.py's
+     botsort_sofjax rows byte for byte, regen_golden_reid.py's forward
+     fingerprint (TF32 off) within one 1e-4 rounding step and, where cv2
+     or PIL reads the jpgs, its tracker rows (frames and ids exact,
+     values within 0.05); (f)
+     generate_demo_gifs.py's tracking of the 40-frame pan scene: ids
+     equal to the CPU's, boxes within 1e-4. Only (a)'s launches are
+     counted ((b) is a comparison, (d)'s are another process's).
 
 Any failed check exits nonzero before the result is printed. The last
 line is ``{"ok": true, "device": {...}}``; the line before it is the
 card's name and power limit, and the one before that lists the kernels
 with their times and bounds (those of phases 3 and 7) and their
-launches summed over the main paths of phases 3, 7 and 9-25, each
+launches summed over the main paths of phases 3, 7 and 9-26, each
 counted from zero; before those, the script's wall time.
 """
 
@@ -293,12 +318,13 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import multiprocessing
 import os
 import subprocess
 import sys
 import tempfile
 import time
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from pathlib import Path
 
 # the run and its result line describe one card: unless the caller chose
@@ -366,10 +392,11 @@ TESTS = Path(__file__).resolve().parent / "tests"
 MOT_MINI = Path(__file__).resolve().parent / "assets" / "MOT17-mini" / "train"
 TRACKER_NAMES = ("sort", "bytetrack", "ocsort", "deepocsort", "strongsort",
                  "botsort", "boosttrack", "hybridsort", "ucmctrack")
-# the trackers whose golden_long sets phase 18 writes through the CLI: on
-# an H100 (700 W) all nine took 154.5 s, so the four that
-# tests/test_torch_cuda.py already runs through the CLI on the card
-# (DeepOC-SORT, BoostTrack, HybridSORT, UCMCTrack) are left to it
+# the trackers whose golden_long sets phase 18 writes through the CLI, a
+# spawned process a set: on an H100 (700 W) all nine took 154.5 s one
+# after another, so the four that tests/test_torch_cuda.py already runs
+# through the CLI on the card (DeepOC-SORT, BoostTrack, HybridSORT,
+# UCMCTrack) are left to it
 CLI_TRACKERS = ("sort", "bytetrack", "ocsort", "strongsort", "botsort")
 TUNE_FRAMES = 8  # scripts/tune.py's default: the bundled GT spans 8 frames
 FAILOVER_TICKS = 20  # the flagship failover's ticks, cut in the middle
@@ -387,10 +414,11 @@ ABLATE_TRACKERS, ABLATE_T, ABLATE_REPEATS = ("bytetrack", "boosttrack"), 30, 2
 SELECT_STREAMS, SELECT_REPEATS = 2048, 20
 # phase 23: the long-horizon script's defaults (ByteTrack) but its frames,
 # OC-SORT's frames, and the leading chunks run again as one run(); cut
-# from 10000, 2000 frames and 4 chunks to keep the script within 900 s (on
-# an H100 at 700 W the defaults' run alone takes 100-145 s: ByteTrack at
-# 8-16 ms a frame-batch, host-bound, with chunks up to 53 ms)
-LONG_FRAMES, LONG_OC_FRAMES, LONG_EQUAL_CHUNKS = 5000, 500, 2
+# from 10000 (5000 when phase 25 came, 2500 when phase 26 came), 2000
+# frames and 4 chunks to keep the script near 900 s (on an H100 at 700 W
+# the defaults' run alone takes 100-145 s: ByteTrack at 8-16 ms a
+# frame-batch, host-bound, with chunks up to 53 ms)
+LONG_FRAMES, LONG_OC_FRAMES, LONG_EQUAL_CHUNKS = 2500, 500, 2
 # phase 24: oriented-box SORT (streams, frames, timed runs, streams run
 # on the host as well) and the live sparse-flow leg (frames, timed runs,
 # streams and frames run on the host as well), their frames cut from 60
@@ -420,6 +448,18 @@ SCORE_POINTS = ((("botsort", "deepocsort"), {"emb_cadence": CADENCE}),
                 (("boosttrack",), {"emb_cadence": BOOST_CADENCE}),
                 (("strongsort",), {"emb_budget": STRONG_PRIORITY}),
                 (("hybridsort",), {"emb_budget": HYBRID_PRIORITY}))
+# phase 26: the worker processes that run the synthetic benchmark's rows,
+# one task a row, while this one runs (d)-(f) (the rows with a host ECC on
+# the tool's blank 1080p frames take 20-29 s each on the card, the others
+# 3-7),
+# the rows also run on the host through the plain auction (in the same
+# pool), the frame of ByteTrack's row whose solves (b) holds to the plain
+# auction and times, the demo-GIF tool's boxes' tolerance to the CPU's, the
+# ReID goldens' tracker rows' tolerance (tests/test_reid_fixture.py's), and
+# run_benchmark.sh's time limit
+SYN_WORKERS = 5
+SYN_HOST_ROWS, SYN_SOLVE_FRAME = ("bytetrack", "boosttrack"), 150
+GIF_BOX_ATOL, REID_ROW_ATOL, BENCH_SH_TIMEOUT = 1e-4, 0.05, 600
 # auction launches of one tick of each tracker's step at the harness's
 # configurations (PERF.md section 3)
 STEP_LAUNCHES = {"bytetrack": 2, "botsort": 2, "strongsort": 2,
@@ -741,6 +781,10 @@ def run_smoke(baseline=None):
     #      priority-budget probes ----------------------------------------
     scores = scoreboard_phase(25, smi)
 
+    # ---- 26. the accuracy and evaluation tools: the synthetic benchmark,
+    #      run_benchmark.sh, the golden regenerators, the GIF tool's tracks
+    evaluation = evaluation_tools_phase(26, smi)
+
     motion = [p for name, p in paths.items() if not name.endswith("live")]
     live_paths = [p for name, p in paths.items() if name.endswith("live")]
     kernels = [{
@@ -757,11 +801,13 @@ def run_smoke(baseline=None):
                      + tools["auction_launches"]
                      + longrun["auction_launches"]
                      + obb_sof["auction_launches"]
-                     + scores["auction_launches"]),
+                     + scores["auction_launches"]
+                     + evaluation["auction_launches"]),
         "max_abs_err": max([max_err, sharded["auction_err"],
                             quantized["auction_err"], tail["auction_err"],
                             tools["auction_err"], longrun["auction_err"],
-                            obb_sof["auction_err"], scores["auction_err"]]
+                            obb_sof["auction_err"], scores["auction_err"],
+                            evaluation["auction_err"]]
                            + [p["auction_err"] for p in motion]
                            + [p["auction"]["auction_err"] for p in live_paths
                               if "auction" in p]),
@@ -815,6 +861,8 @@ def run_smoke(baseline=None):
           f"{obb_sof['auction_launches']}")
     print(f"launches on phase 25's scoreboard rows: auction "
           f"{scores['auction_launches']}")
+    print(f"launches on phase 26's synthetic benchmark rows: auction "
+          f"{evaluation['auction_launches']}")
     return kernels, smi
 
 
@@ -972,10 +1020,10 @@ def solves_on_path(phase, label, stage_names, captured, card,
         bound_by.add(by)
         print(f"phase {phase} kernel on the {label} path's {name} "
               f"{tuple(args[0].shape)}: kernel {ks:.4f} ms{other}, plain "
-              f"{ps:.3f} ms, bound {bs:.4f} ms ({by}; whole tiles "
-              f"{full_tile_bound_ms(*args):.4f} ms), max abs err {err}")
+              f"{ps:.3f} ms, bound {bs:.6f} ms ({by}; whole tiles "
+              f"{full_tile_bound_ms(*args):.6f} ms), max abs err {err}")
     print(f"phase {phase} {label} kernel per frame: {k_ms:.4f} ms, plain "
-          f"{p_ms:.3f} ms, bound {b_ms:.4f} ms; card: {card}")
+          f"{p_ms:.3f} ms, bound {b_ms:.6f} ms; card: {card}")
     return {"auction_err": max_err, "ms": k_ms, "plain_ms": p_ms,
             "bound_ms": b_ms,
             "bound_by": "bytes" if bound_by == {"bytes"} else "operations"}
@@ -1950,42 +1998,6 @@ def serving_phase(phase, card, mux_build, runner_ms, live_runner_ms, model):
                        for name, t in timers.items()}}
 
 
-def tune_trial(name, params, device, work):
-    """scripts/tune.py's evaluate_params on the port: the tracker built
-    from ``params`` (with the auction kernel's route, the plain auction
-    on the CPU) over MOT17-mini's first TUNE_FRAMES frames of each
-    sequence, rows written to ``work``, scored by the port's metrics.
-    Returns the combined metrics and the rows' bytes per sequence."""
-    from motcpp_tpu_torch import create_tracker
-    from motcpp_tpu_torch.data import (
-        MOT17Dataset,
-        convert_to_mot_format,
-        write_mot_results,
-    )
-    from motcpp_tpu_torch.metrics import combine_metrics, evaluate_sequence
-
-    ds = MOT17Dataset(MOT_MINI)
-    rows, texts = [], {}
-    dummy = np.zeros((1080, 1920, 3), np.uint8)
-    for seq in ds.sequences:
-        detections = ds.load_detections(seq.det_path)
-        tracker = create_tracker(name, max_dets=128, max_tracks=128,
-                                 device=device, lap_impl="auction_pallas",
-                                 **params)
-        out_file = work / f"{seq.name}.txt"
-        for frame_id in sorted(detections)[:TUNE_FRAMES]:
-            tracks = tracker.update(detections[frame_id], dummy)
-            if tracks.shape[0]:
-                write_mot_results(out_file,
-                                  convert_to_mot_format(tracks, frame_id))
-        gt = MOT_MINI / seq.name / "gt" / "gt.txt"
-        if gt.exists() and out_file.exists():
-            texts[seq.name] = out_file.read_bytes()
-            rows.append(evaluate_sequence(gt, out_file))
-    check(rows, f"the tune loop emitted nothing on {device}")
-    return combine_metrics(rows), texts
-
-
 def run_service(svc, submit, ticks):
     """One step() per tick of ``ticks`` after ``submit(t)``."""
     out = []
@@ -2061,14 +2073,39 @@ def traced_kernels(tick):
     return {e.get("name", "") for e in events}
 
 
+def golden_long_worker(name, root):
+    """scripts/regen_golden.py's golden_long set of ``name`` through the
+    CLI on the card into ``root``, in a worker process at one torch
+    thread. Returns its wall seconds and, for each of its rows' writes,
+    whether native_io wrote it."""
+    from motcpp_tpu_torch.scripts import regen_golden
+    from motcpp_tpu_torch.utils import native_io
+
+    torch.set_num_threads(1)
+    written, write_mot = [], native_io.write_mot
+
+    def counted_write(*args):
+        ok = write_mot(*args)
+        written.append(ok)
+        return ok
+
+    native_io.write_mot = counted_write
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        regen_golden.write_set(name, "golden_long", root, "cuda")
+    return time.perf_counter() - t0, written
+
+
 def utilities_phase(phase, card, io_build, model, timers):
     """Phase ``phase``: what the utilities slice gives a deployment, on
     the card. (a) the nine configs through the port's reader (PyYAML or
-    not) and scripts/tune.py's loop for ByteTrack over MOT17-mini through
-    the auction kernel, the YAML defaults and 3 seeded draws, equal to
-    the same loop on the CPU; (b) the tests/golden_long sets of
-    CLI_TRACKERS from the port's CLI, byte for byte through the native
-    writer, scored as tests/accuracy_mot17mini.json; (c) checkpoint failover
+    not) and scripts/tune.py::evaluate_params for ByteTrack over
+    MOT17-mini through the auction kernel, the YAML defaults and 3
+    seeded draws, equal to the same loop on the CPU; (b) the
+    tests/golden_long sets of CLI_TRACKERS from scripts/regen_golden.py
+    (the port's CLI), a spawned process a set (golden_long_worker), byte
+    for byte through the native writer, scored by
+    scripts/update_accuracy_table.py as tests/accuracy_mot17mini.json; (c) checkpoint failover
     through TrackingService in both formats at the ByteTrack flagship
     and at live BoT-SORT cadence 8; (d) one flagship and one live tick
     under utils/profiling.py::trace, and FrameTimer's p50 of phase 17's
@@ -2080,8 +2117,8 @@ def utilities_phase(phase, card, io_build, model, timers):
     from motcpp_tpu_torch.config import load_tracker_config
     from motcpp_tpu_torch.data import pack_valid_rows, synth_stream_dets
     from motcpp_tpu_torch.data.mot17 import _parse_det_text
-    from motcpp_tpu_torch.metrics import combine_metrics, evaluate_sequence
     from motcpp_tpu_torch.ops import auction_cuda
+    from motcpp_tpu_torch.scripts import regen_golden, tune, update_accuracy_table
     from motcpp_tpu_torch.serving import TrackingService
     from motcpp_tpu_torch.utils import native_io
 
@@ -2099,7 +2136,7 @@ def utilities_phase(phase, card, io_build, model, timers):
               f"{det.relative_to(MOT_MINI)}: {len(got)} rows identical")
 
     osblock_cuda.LAUNCHES = auction_cuda.LAUNCHES = 0
-    # ---- (a) configs without PyYAML, tune.py's loop ------------------------
+    # ---- (a) configs without PyYAML, scripts/tune.py's loop ---------------
     has_yaml = subprocess.run([sys.executable, "-c", "import yaml"],
                               capture_output=True).returncode == 0
     configs = {n: load_tracker_config(n) for n in TRACKER_NAMES}
@@ -2113,9 +2150,14 @@ def utilities_phase(phase, card, io_build, model, timers):
         for i, params in enumerate(trials):
             runs = {}
             for dev in ("cuda", "cpu"):
-                work = Path(d) / f"trial{i}_{len(runs)}"
+                work = Path(d) / f"trial{i}_{dev}"
                 work.mkdir()
-                runs[dev] = tune_trial("bytetrack", params, dev, work)
+                m = tune.evaluate_params("bytetrack", params, MOT_MINI,
+                                         TUNE_FRAMES, work, device=dev,
+                                         lap_impl="auction_pallas")
+                check(m, f"tune trial {i}: nothing scored on {dev}")
+                runs[dev] = m, {p.name: p.read_bytes()
+                                for p in sorted(work.glob("*.txt"))}
             (m, texts), (m_cpu, texts_cpu) = runs["cuda"], runs["cpu"]
             check(texts == texts_cpu, f"tune trial {i}: the card's rows "
                   "differ from the CPU's")
@@ -2128,63 +2170,49 @@ def utilities_phase(phase, card, io_build, model, timers):
     check(tune_launches > 0, "the tune loop did not launch the auction kernel")
     print(f"phase {phase} (a) yaml importable here: {has_yaml}; nine configs "
           f"read without it ({', '.join(f'{n} {len(c.params)}' for n, c in configs.items())} "
-          f"parameters); tune.py's loop for ByteTrack over MOT17-mini's "
+          f"parameters); scripts/tune.py::evaluate_params for ByteTrack "
+          f"through the auction kernel over MOT17-mini's "
           f"first {TUNE_FRAMES} frames, card = CPU (rows byte for byte, "
           f"HOTA, MOTA, IDF1): {' | '.join(scores)}; auction launches "
           f"{tune_launches}")
 
-    # ---- (b) the nine golden_long sets from the CLI on the card ------------
-    from motcpp_tpu_torch.cli import main as cli_main
-
-    written = []
-    write_mot = native_io.write_mot
-
-    def counted_write(*args):
-        ok = write_mot(*args)
-        written.append(ok)
-        return ok
-
+    # ---- (b) golden_long sets from the CLI on the card -----------------------
     expected = json.loads((TESTS / "accuracy_mot17mini.json").read_text())
-    native_io.write_mot = counted_write
     t0 = time.perf_counter()
-    walls = {}
-    try:
-        with tempfile.TemporaryDirectory() as d:
-            for name in CLI_TRACKERS:
-                t1 = time.perf_counter()
-                out = Path(d) / name
-                with contextlib.redirect_stdout(io.StringIO()):
-                    rc = cli_main([str(MOT_MINI), str(out), name,
-                                   "--max-dets", "128", "--max-tracks", "128",
-                                   "--no-ablation", "--limit-frames", "150"])
-                walls[name] = time.perf_counter() - t1
-                check(rc == 0, f"the CLI failed for {name}")
-                golden = sorted((TESTS / "golden_long" / name).glob("*.txt"))
-                check(len(golden) == 2, f"golden_long/{name} is incomplete")
-                rows = []
-                for gf in golden:
-                    check((out / gf.name).read_bytes() == gf.read_bytes(),
-                          f"the CLI's {name} {gf.name} differs from "
-                          "tests/golden_long")
-                    rows.append(evaluate_sequence(
-                        MOT_MINI / gf.stem / "gt" / "gt.txt", out / gf.name))
-                got, want = combine_metrics(rows), expected[name]
-                check(all(abs(got[k] - want[k]) <= 0.05 for k in
-                          ("HOTA", "MOTA", "IDF1", "DetA", "AssA", "MOTP"))
-                      and all(got[k] == want[k] for k in
-                              ("IDSW", "FP", "FN", "MT", "ML")),
-                      f"{name}'s scores differ from accuracy_mot17mini.json")
-    finally:
-        native_io.write_mot = write_mot
+    with tempfile.TemporaryDirectory() as d, ProcessPoolExecutor(
+            len(CLI_TRACKERS),
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        runs = {name: pool.submit(golden_long_worker, name, d)
+                for name in CLI_TRACKERS}
+        walls, written = {}, []
+        for name, run in runs.items():
+            walls[name], writes = run.result()
+            written += writes
+            golden = TESTS / "golden_long" / name
+            check(len(list(golden.glob("*.txt"))) == 2,
+                  f"golden_long/{name} is incomplete")
+            diff = regen_golden.first_difference(
+                Path(d) / "golden_long" / name, golden)
+            check(diff is None, f"the CLI's {name} set differs from "
+                  f"tests/golden_long at {diff}")
+        table = update_accuracy_table.score_table(Path(d) / "golden_long")
+    for name in CLI_TRACKERS:
+        got, want = table[name], expected[name]
+        check(all(abs(got[k] - want[k]) <= 0.05 for k in
+                  ("HOTA", "MOTA", "IDF1", "DetA", "AssA", "MOTP"))
+              and all(got[k] == want[k] for k in
+                      ("IDSW", "FP", "FN", "MT", "ML")),
+              f"{name}'s scores differ from accuracy_mot17mini.json")
     b_s = time.perf_counter() - t0
     check(written and all(written), "rows were not written by native_io")
     print(f"phase {phase} (b) the golden_long sets of {', '.join(CLI_TRACKERS)}"
-          f" from the CLI on the card (exact JV, 150 frames of each "
-          f"sequence): byte for byte, "
-          f"{len(written)} native writes, scores = accuracy_mot17mini.json; "
+          f" from scripts/regen_golden.py (the CLI on the card, exact JV, 150 "
+          f"frames of each sequence, a spawned process a set): byte for "
+          f"byte, {len(written)} native writes, scores (scripts/"
+          f"update_accuracy_table.py) = accuracy_mot17mini.json; "
           f"wall {b_s:.1f} s ("
           + ", ".join(f"{n} {s:.1f}" for n, s in walls.items())
-          + f" s); card: {card}")
+          + f" s in their processes); card: {card}")
 
     # ---- (c) checkpoint failover through TrackingService -------------------
     osblock_cuda.LAUNCHES = auction_cuda.LAUNCHES = 0
@@ -3790,9 +3818,6 @@ def scoreboard_phase(phase, card):
     card takes the two processes' kernels in turn. Returns the launches
     of (a) and (b), each process's counted from 0 ((d) is a
     comparison), and (e)'s largest difference."""
-    import multiprocessing
-    from concurrent.futures import ProcessPoolExecutor
-
     from motcpp_tpu_torch.ops import auction_cuda
     from motcpp_tpu_torch.scripts import ablation_benchmark as ab
 
@@ -3932,6 +3957,299 @@ def scoreboard_phase(phase, card):
           f"auction launches (a) {launches}, (b) {probed['launches']} ((d)'s "
           f"comparison not counted); card: {card}", flush=True)
     return {"auction_launches": total, "auction_err": err}
+
+
+def synthetic_row(name, lap, device, capture=()):
+    """synthetic_benchmark.py's run_table for the one tracker ``name`` at
+    its defaults with ``lap`` on ``device``, watched
+    (:func:`watched_scoreboard`, which copies the kernel's inputs of each
+    (model, frame) of ``capture``), in a worker process at one torch
+    thread. Returns the row, its line, its record without its outputs,
+    the captured solves (on the CPU), the auction kernel's launches
+    (counted from 0) and the scoring's seconds."""
+    from motcpp_tpu_torch.ops import auction_cuda
+    from motcpp_tpu_torch.scripts.synthetic_benchmark import run_table
+
+    torch.set_num_threads(1)
+    auction_cuda.LAUNCHES = 0
+    lines = []
+    with watched_scoreboard(capture=capture) as seen:
+        table = run_table(trackers=[name], lap=lap, device=device,
+                          progress=lines.append)
+    (row,) = seen["rows"]
+    solves = {key: [[t.cpu() for t in args] for args in captured]
+              for key, captured in seen["solves"].items()}
+    return (table[name], lines[0], dict(row, outs=None), solves,
+            auction_cuda.LAUNCHES, seen["metrics_s"][0])
+
+
+def eval_table(stdout):
+    """The eval tool's table in ``stdout``: its header to its COMBINED
+    row."""
+    lines = stdout.splitlines()
+    start = next(i for i, ln in enumerate(lines) if ln.startswith("seq "))
+    end = next(i for i, ln in enumerate(lines) if ln.startswith("COMBINED"))
+    return lines[start:end + 1]
+
+
+def run_group(argv, env, timeout):
+    """``argv`` in a session of its own; every process of the session is
+    killed if it outlives ``timeout`` seconds. Returns (exit code,
+    stdout, stderr)."""
+    import signal
+
+    proc = subprocess.Popen(argv, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise SmokeFailure(f"{argv[:2]} did not end within {timeout} s")
+    return proc.returncode, out, err
+
+
+def evaluation_tools_phase(phase, card):
+    """Phase ``phase``: the accuracy and evaluation tools of
+    motcpp_tpu_torch/scripts/ on the card. (a) synthetic_benchmark.py's
+    run_table at its defaults (nine trackers, 300 frames, 24 objects,
+    max_tracks=64, max_dets=48) through the auction kernel, one task a
+    row in a pool of SYN_WORKERS spawned processes: every row launches
+    it; SYN_HOST_ROWS also run on the host through the plain auction (in
+    the same pool), the card's rows within SCORE_HOST_ATOL of them on
+    HOTA, MOTA, IDF1, DetA and AssA; (b) the kernel on the solves of
+    ByteTrack's frame SYN_SOLVE_FRAME held to the plain auction (max abs
+    err 0) and timed beside it and its bound. While the pool runs (a),
+    this process runs (d)-(f): (d) run_benchmark.sh with
+    TRACKERS=bytetrack CLI_FLAGS="--lap auction_pallas" over MOT17-mini
+    in a subprocess: its result files equal the CLI's on the host
+    (--cpu --lap auction_pallas) byte for byte and its eval_mot table
+    equals eval_mot's on the host's files; (e) regen_golden.py's nine
+    tests/golden sets (exact JV), regen_golden_cmc.py's botsort_sofjax
+    rows, byte for byte, and regen_golden_reid.py's forward fingerprint
+    with TF32 off, each value within one 1e-4 rounding step of
+    tests/golden_reid/forward_fingerprint.json, and, where cv2 or PIL
+    reads the MOT17-02 jpgs, its StrongSORT and BoT-SORT rows with frames
+    and ids exact and values within REID_ROW_ATOL; (f)
+    generate_demo_gifs.py's track_frames for ByteTrack over the 40-frame
+    synthetic pan scene: ids equal to the CPU's, boxes and confidences
+    within GIF_BOX_ATOL. The tune loop, (c) in the tools' list, is phase
+    18 (a). Returns (a)'s kernel launches (each task's counted from 0)
+    and (b)'s largest difference."""
+    from motcpp_tpu_torch.appearance.reid import ReIDBackend
+    from motcpp_tpu_torch.cli import main as cli_main
+    from motcpp_tpu_torch.scripts import (
+        eval_mot,
+        generate_demo_gifs,
+        regen_golden,
+        regen_golden_cmc,
+        regen_golden_reid,
+    )
+    from motcpp_tpu_torch.scripts import synthetic_benchmark as syn
+
+    t_phase = time.perf_counter()
+    keys = ("HOTA", "MOTA", "IDF1", "DetA", "AssA")
+    capture = (("bytetrack", SYN_SOLVE_FRAME),)
+    with ProcessPoolExecutor(
+            SYN_WORKERS, mp_context=multiprocessing.get_context("spawn")
+    ) as pool:
+        # ---- (a) every row through the kernel, two on the host too -------
+        host = {name: pool.submit(synthetic_row, name, "auction", "cpu")
+                for name in SYN_HOST_ROWS}
+        card_rows = {name: pool.submit(synthetic_row, name, "auction_pallas",
+                                       "cuda", capture)
+                     for name in sorted(syn.TRACKERS)}
+
+        # ---- (d) run_benchmark.sh on the card against the host's CLI ------
+        script = (Path(__file__).resolve().parent / "motcpp_tpu_torch"
+                  / "scripts" / "run_benchmark.sh")
+        with tempfile.TemporaryDirectory() as d:
+            d = Path(d)
+            t0 = time.perf_counter()
+            rc, out, err_text = run_group(
+                ["bash", str(script), str(MOT_MINI)],
+                dict(os.environ, TRACKERS="bytetrack",
+                     CLI_FLAGS="--lap auction_pallas",
+                     OUT_BASE=str(d / "card"), PYTHON=sys.executable),
+                BENCH_SH_TIMEOUT)
+            d_s = time.perf_counter() - t0
+            check(rc == 0,
+                  f"(d) run_benchmark.sh exited {rc}: {err_text[-2000:]}")
+            with contextlib.redirect_stdout(io.StringIO()):
+                check(cli_main([str(MOT_MINI), str(d / "host"), "bytetrack",
+                                "--cpu", "--lap", "auction_pallas"]) == 0,
+                      "(d) the CLI failed on the host")
+            diff = regen_golden.first_difference(d / "card" / "bytetrack",
+                                                 d / "host")
+            check(diff is None, f"(d) run_benchmark.sh's files differ from "
+                  f"the host CLI's at {diff}")
+            host_eval = io.StringIO()
+            with contextlib.redirect_stdout(host_eval):
+                check(eval_mot.main(["--gt_folder", str(MOT_MINI),
+                                     "--trackers_folder",
+                                     str(d / "host")]) == 0,
+                      "(d) eval_mot failed on the host's files")
+            table_d = eval_table(out)
+            check(table_d == eval_table(host_eval.getvalue()),
+                  "(d) run_benchmark.sh's eval table differs from the host's")
+            n_rows = sum(len(f.read_text().splitlines())
+                         for f in (d / "host").glob("*.txt"))
+        print(f"phase {phase} (d) run_benchmark.sh TRACKERS=bytetrack "
+              f"CLI_FLAGS='--lap auction_pallas' over MOT17-mini on the "
+              f"card in a subprocess: result files = the host CLI's (--cpu "
+              f"--lap auction_pallas) byte for byte ({n_rows} rows), eval "
+              f"table = eval_mot on the host's files (combined HOTA, MOTA, "
+              f"IDF1 {' '.join(table_d[-1].split()[1:4])}); {d_s:.1f} s "
+              f"(the script's kernel launches are its own processes', not "
+              f"counted here)", flush=True)
+
+        # ---- (e) the regenerators on the card -----------------------------
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as d:
+            for name in regen_golden.TRACKERS:
+                with contextlib.redirect_stdout(io.StringIO()):
+                    out_dir = regen_golden.write_set(name, "golden", Path(d),
+                                                     "cuda")
+                diff = regen_golden.first_difference(
+                    out_dir, TESTS / "golden" / name)
+                check(diff is None, f"(e) regen_golden's {name} set differs "
+                      f"from tests/golden at {diff}")
+        golden_s = time.perf_counter() - t0
+        _, tracker, kwargs, needs_cv2 = next(
+            r for r in regen_golden_cmc.RUNS if r[0] == "botsort_sofjax")
+        check(not needs_cv2, "(e) botsort_sofjax is marked as needing cv2")
+        t0 = time.perf_counter()
+        text = regen_golden_cmc.run_scene(tracker, kwargs, "cuda")
+        line = regen_golden.differing_line(
+            text.encode(), (TESTS / "golden_cmc" / "botsort_sofjax.txt")
+            .read_bytes())
+        check(line is None, f"(e) regen_golden_cmc's botsort_sofjax rows "
+              f"differ from tests/golden_cmc at line {line}")
+        cmc_s = time.perf_counter() - t0
+        backend = ReIDBackend(weights=str(regen_golden_reid.FIXTURE),
+                              device="cuda")
+        with exact_float32():
+            fp = regen_golden_reid.forward_fingerprint(backend)
+        want = json.loads((TESTS / "golden_reid" / "forward_fingerprint.json")
+                          .read_text())
+        parts = ("norms", "pairwise_cos", "first8")
+        check(fp["feature_dim"] == want["feature_dim"]
+              and all(len(fp[k]) == len(want[k]) for k in parts),
+              f"(e) the fingerprint's shape differs: {fp}")
+        steps = max(abs(round(a * 1e4) - round(b * 1e4))
+                    for k in parts for a, b in zip(fp[k], want[k]))
+        check(steps <= 1, f"(e) the card's fingerprint is {steps} rounding "
+              f"steps off tests/golden_reid: {fp}")
+        fp_line = ("identical to" if fp == want
+                   else f"within {steps} rounding step of")
+        # the tracker rows read the MOT17-02 jpgs, which needs cv2 or PIL
+        try:
+            regen_golden_reid.load_frames_and_dets()
+            unread = None
+        except RuntimeError as exc:
+            unread = str(exc)
+        if unread is None:
+            reid = []
+            for name in regen_golden_reid.TRACKERS:
+                with exact_float32():
+                    got = regen_golden_reid.run_tracker(name, backend, "cuda")
+                golden = TESTS / "golden_reid" / f"{name}_MOT17-02.json"
+                want_rows = json.loads(golden.read_text())
+                check(len(got) == len(want_rows) and all(
+                    g[0] == w[0] and g[5] == w[5]
+                    and max(abs(a - b) for a, b in zip(g, w)) <= REID_ROW_ATOL
+                    for g, w in zip(got, want_rows)),
+                    f"(e) {name}'s ReID golden rows on the card differ from "
+                    f"tests/golden_reid beyond {REID_ROW_ATOL}")
+                exact = (json.dumps(got) + "\n").encode() == golden.read_bytes()
+                reid.append(f"{name} {len(got)} rows "
+                            + ("byte for byte" if exact else
+                               f"(frames and ids exact, values within "
+                               f"{REID_ROW_ATOL}; not byte for byte)"))
+            rows_line = ("its tracker rows over the MOT17-02 jpgs on the card "
+                         "(TF32 off): " + ", ".join(reid))
+        else:
+            rows_line = (f"its tracker rows over the MOT17-02 jpgs were not "
+                         f"run on the card ({unread}) and are held on the CPU "
+                         f"by tests/test_torch_regen.py")
+        print(f"phase {phase} (e) regen_golden's nine tests/golden sets on "
+              f"the card (exact JV): byte for byte, {golden_s:.1f} s; "
+              f"regen_golden_cmc's botsort_sofjax: byte for byte, "
+              f"{cmc_s:.1f} s; regen_golden_reid's forward fingerprint (TF32 "
+              f"off) {fp_line} tests/golden_reid/forward_fingerprint.json; "
+              f"{rows_line}; card: {card}", flush=True)
+
+        # ---- (f) the GIF tool's tracking ------------------------------------
+        runs = {dev: generate_demo_gifs.track_frames(
+            "bytetrack", generate_demo_gifs.synthetic_frames(), dev)
+            for dev in ("cuda", "cpu")}
+        check(len(runs["cuda"]) == len(runs["cpu"]) == 40,
+              "(f) the GIF tool did not track 40 frames")
+        worst = 0.0
+        for (fid, _, a), (_, _, b) in zip(runs["cuda"], runs["cpu"]):
+            check(a.shape == b.shape
+                  and np.array_equal(a[:, [4, 6, 7]], b[:, [4, 6, 7]]),
+                  f"(f) frame {fid}: the card's ids differ from the CPU's")
+            worst = max(worst,
+                        float(np.abs(a[:, :6] - b[:, :6]).max(initial=0)))
+        check(worst <= GIF_BOX_ATOL, f"(f) boxes {worst} off the CPU's")
+        n_rows = sum(len(a) for _, _, a in runs["cuda"])
+        print(f"phase {phase} (f) generate_demo_gifs.track_frames ByteTrack "
+              f"over the 40-frame synthetic pan scene on the card: {n_rows} "
+              f"rows, ids = the CPU's, boxes within {worst:.2e} of them; the "
+              f"drawing and the GIF encoding (host work that needs cv2 or "
+              f"PIL) were not run on the card and are held by "
+              f"tests/test_torch_convert_gifs.py", flush=True)
+        def_s = time.perf_counter() - t_phase
+        card_rows = {name: run.result() for name, run in card_rows.items()}
+        host = {name: run.result()[0] for name, run in host.items()}
+        wait_s = time.perf_counter() - t_phase - def_s
+
+    # ---- (a)'s rows -----------------------------------------------------------
+    print(f"phase {phase} (a) {syn.HEADER}")
+    launches, metrics_s, solves = 0, 0.0, {}
+    for name, (got, line, row, captured, n, m_s) in card_rows.items():
+        per = np.asarray(row["launches"])
+        check(per.sum() > 0, f"(a) {name}: no auction kernel launch")
+        launches, metrics_s = launches + n, metrics_s + m_s
+        solves.update(captured)
+        print(f"phase {phase} (a) {line}; {got['seconds']:.2f} s, "
+              f"update() {1e3 * row['update_s'] / len(per):.2f} ms a frame, "
+              f"{per.sum()} launches ({per.min()}-{per.max()} a frame); "
+              f"card: {card}", flush=True)
+    for name in SYN_HOST_ROWS:
+        got, want = card_rows[name][0], host[name]
+        diff = {k: got[k] - want[k] for k in keys}
+        same = all(got[k] == want[k] for k in keys + ("IDSW",))
+        print(f"phase {phase} (a) {name} card against the host's plain "
+              f"auction: " + ", ".join(f"{k} {got[k]:.4f} ({want[k]:.4f})"
+                                       for k in keys)
+              + f", IDSW {got['IDSW']} ({want['IDSW']}); "
+              + ("identical" if same else f"card less host {diff}"))
+        check(all(abs(d) <= SCORE_HOST_ATOL for d in diff.values()),
+              f"(a) {name}: the card's row is off the host's by {diff}")
+    print(f"phase {phase} (a) the nine rows one task each in a pool of "
+          f"{SYN_WORKERS} spawned processes (with the host's "
+          f"{len(SYN_HOST_ROWS)}), the scoring {metrics_s:.1f} s of their "
+          f"time; this process ran (d)-(f) meanwhile in {def_s:.1f} s, then "
+          f"waited {wait_s:.1f} s for the pool; auction launches "
+          f"{launches}", flush=True)
+
+    # ---- (b) the kernel on ByteTrack's solves of one frame ---------------
+    solves = solves.get(("bytetrack", SYN_SOLVE_FRAME))
+    check(solves, f"(b) no solve captured in ByteTrack's frame "
+          f"{SYN_SOLVE_FRAME}")
+    solves = [[t.to("cuda") for t in args] for args in solves]
+    shapes = ", ".join(str(tuple(args[0].shape)) for args in solves)
+    err = solves_on_path(
+        phase, f"synthetic ByteTrack frame {SYN_SOLVE_FRAME} ({shapes})",
+        [f"solve {i + 1}" for i in range(len(solves))], solves,
+        card)["auction_err"]
+    print(f"phase {phase} wall time {time.perf_counter() - t_phase:.1f} s: "
+          f"(d)-(f) {def_s:.1f} beside (a), then waited {wait_s:.1f}; "
+          f"auction launches (a) {launches}; card: {card}", flush=True)
+    return {"auction_launches": launches, "auction_err": err}
 
 
 def main(argv=None):

@@ -190,9 +190,9 @@ def test_ecc_golden_on_the_camera_pan_scene():
     """tests/golden_cmc/boosttrack_ecc.txt, byte for byte, with the
     port's host ECC estimating the warps from the frames."""
     pytest.importorskip("cv2")
-    from test_torch_cmc import golden_cmc_lines
+    from motcpp_tpu_torch.scripts.regen_golden_cmc import run_scene
 
-    assert golden_cmc_lines("boosttrack") == (
+    assert run_scene("boosttrack", {}, device="cpu") == (
         HERE / "golden_cmc" / "boosttrack_ecc.txt").read_text()
 
 

@@ -11,7 +11,6 @@ the downscaled frames differ by an ulp of their 0-255 values and the
 warps by about 2e-5.
 """
 
-import sys
 from pathlib import Path
 
 import jax
@@ -22,8 +21,8 @@ import torch
 
 from motcpp_tpu.data.synthetic import camera_pan_scene
 from motcpp_tpu.motion import cmc as jcmc
-from motcpp_tpu_torch import create_tracker
 from motcpp_tpu_torch.motion import cmc
+from motcpp_tpu_torch.scripts import regen_golden_cmc
 
 import torch_threads  # noqa: F401  (torch at one thread)
 
@@ -120,31 +119,6 @@ def test_create_cmc_accepts_and_rejects_as_the_jax_package():
         cmc.create_cmc("bogus")
 
 
-def golden_cmc_lines(tracker, **kwargs):
-    """MOT rows of ``tracker`` through the port over the pan scene with
-    its dropouts, as scripts/regen_golden_cmc.py writes them."""
-    sys.path.insert(0, str(HERE.parent / "scripts"))
-    from motcpp_tpu_torch.data import convert_to_mot_format
-    from regen_golden_cmc import DROPOUTS
-
-    try:
-        import cv2
-
-        cv2.setRNGSeed(0)
-    except ImportError:
-        pass
-    frames, dets_all, embs_all = camera_pan_scene(n_frames=30,
-                                                  dropout_frames=DROPOUTS)
-    tr = create_tracker(tracker, max_dets=16, max_tracks=32, device="cpu",
-                        **kwargs)
-    lines = []
-    for t, (img, dets, embs) in enumerate(zip(frames, dets_all, embs_all)):
-        for row in convert_to_mot_format(tr.update(dets, img, embs), t + 1):
-            lines.append(",".join([f"{int(v)}" for v in row[:6]]
-                                  + [f"{row[6]:.6f}", "-1", "-1", "-1"]))
-    return "\n".join(lines) + "\n"
-
-
 @pytest.mark.parametrize("name,method,needs_cv2", [
     ("botsort_ecc", "ecc", True), ("botsort_sofjax", "sof_jax", False)])
 def test_botsort_golden_cmc_rows(name, method, needs_cv2):
@@ -152,5 +126,6 @@ def test_botsort_golden_cmc_rows(name, method, needs_cv2):
     BoT-SORT and its estimators."""
     if needs_cv2:
         pytest.importorskip("cv2")
-    got = golden_cmc_lines("botsort", cmc_method=method)
+    got = regen_golden_cmc.run_scene("botsort", {"cmc_method": method},
+                                     device="cpu")
     assert got == (HERE / "golden_cmc" / f"{name}.txt").read_text()

@@ -1336,6 +1336,24 @@ def test_ablation_tool_runs_on_the_card_through_the_kernel(cuda, capsys):
     assert capsys.readouterr().out.startswith("sort ")
 
 
+def test_synthetic_benchmark_row_on_the_card_equals_the_hosts_plain_auction(
+        cuda):
+    """ByteTrack's synthetic-benchmark row at 100 frames on the card
+    through the auction kernel: the metrics of the same row on the host
+    through the plain auction, one kernel launch a stage a frame."""
+    from motcpp_tpu_torch.scripts import synthetic_benchmark as tool
+
+    before = auction_cuda.LAUNCHES
+    card = tool.run_table(100, trackers=["bytetrack"], lap="auction_pallas",
+                          device=cuda)
+    assert auction_cuda.LAUNCHES - before == 2 * 100
+    host = tool.run_table(100, trackers=["bytetrack"], lap="auction",
+                          device="cpu")
+    for table in (card, host):
+        del table["bytetrack"]["seconds"]
+    assert card == host
+
+
 @pytest.mark.parametrize("tracker,probe", [
     ("ucmctrack", {}), ("deepocsort", {}), ("botsort", {}),
     ("boosttrack", {}), ("hybridsort", {}),

@@ -194,9 +194,9 @@ def test_sof_golden_on_the_camera_pan_scene():
     """tests/golden_cmc/deepocsort_sof.txt, byte for byte, with the
     port's host SOF (OpenCV) estimating the warps from the frames."""
     pytest.importorskip("cv2")
-    from test_torch_cmc import golden_cmc_lines
+    from motcpp_tpu_torch.scripts.regen_golden_cmc import run_scene
 
-    assert golden_cmc_lines("deepocsort") == (
+    assert run_scene("deepocsort", {}, device="cpu") == (
         HERE / "golden_cmc" / "deepocsort_sof.txt").read_text()
 
 

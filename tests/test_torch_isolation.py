@@ -346,3 +346,61 @@ def test_ablation_scoreboard_defaults_to_cuda_and_raises_without_it(
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert not (tmp_path / "t.json").exists()
+
+
+EVAL_TOOLS = ("eval_mot", "update_accuracy_table", "synthetic_benchmark",
+              "tune", "regen_golden", "regen_golden_cmc", "regen_golden_reid",
+              "convert_reid_weights", "generate_demo_gifs")
+
+
+def test_evaluation_tools_are_in_the_isolation_checks_scope():
+    """The nine Python tools are among the files held to the import rules
+    above; the shell script runs only the port's modules."""
+    import re
+
+    scripts = {p.name for p in PORT_FILES if p.parent.name == "scripts"}
+    assert {f"{name}.py" for name in EVAL_TOOLS} <= scripts
+    sh = (ROOT / "motcpp_tpu_torch" / "scripts" / "run_benchmark.sh")
+    code = [ln for ln in sh.read_text().splitlines()
+            if not ln.lstrip().startswith("#")]
+    assert re.findall(r"-m (\S+)", "\n".join(code)) == [
+        "motcpp_tpu_torch.cli", "motcpp_tpu_torch.scripts.eval_mot"]
+    assert not [ln for ln in code
+                if re.search(r"motcpp_tpu(?!_torch)|scripts/|bench\.py", ln)]
+
+
+def test_evaluation_tools_default_to_cuda_and_raise_without_it(
+        no_cuda, tmp_path, monkeypatch):
+    """Every entry point of the evaluation tools that builds a tracker or
+    a ReID backend runs on the card and, without --cpu (or a device),
+    raises where there is none, before it writes anything."""
+    from motcpp_tpu_torch.scripts import (
+        generate_demo_gifs,
+        regen_golden,
+        regen_golden_cmc,
+        regen_golden_reid,
+        synthetic_benchmark,
+        tune,
+    )
+
+    mot = ROOT / "assets" / "MOT17-mini" / "train"
+    monkeypatch.setattr(regen_golden, "BUILD", tmp_path / "build")
+    monkeypatch.setattr(regen_golden_cmc, "GOLDEN", tmp_path / "cmc")
+    monkeypatch.setattr(regen_golden_reid, "GOLDEN", tmp_path / "reid")
+    for call in (
+            lambda: synthetic_benchmark.run_table(10, trackers=["sort"]),
+            lambda: synthetic_benchmark.main(["--frames", "10"]),
+            lambda: tune.evaluate_params("bytetrack", {}, mot, 8, tmp_path),
+            lambda: tune.main(["bytetrack", "--trials", "1"]),
+            lambda: regen_golden.write_set("sort", "golden"),
+            lambda: regen_golden.main(["sort"]),
+            lambda: regen_golden_cmc.run_scene("botsort", {}),
+            lambda: regen_golden_cmc.main([]),
+            lambda: regen_golden_reid.run_tracker("botsort", None),
+            lambda: regen_golden_reid.main([]),
+            lambda: generate_demo_gifs.track_frames("bytetrack", iter(())),
+            lambda: generate_demo_gifs.main(
+                [str(mot), str(tmp_path / "gifs"), "--synthetic"])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert not list(tmp_path.iterdir())

@@ -19,7 +19,8 @@ long-horizon streaming tool, oriented-box SORT and the live sparse-flow
 leg, the ablation accuracy scoreboard with its cadence and
 priority-budget probes, and the accuracy and evaluation tools (the
 synthetic benchmark, run_benchmark.sh, the golden regenerators and the
-demo-GIF tool's tracking), and checks what they emit. The trackers are
+demo-GIF tool's tracking), and the examples (motcpp_tpu_torch/examples/),
+and checks what they emit. The trackers are
 built at the scoreboard's configurations by
 ``motcpp_tpu_torch/scripts/tracker_fns.py``.
 
@@ -303,13 +304,26 @@ timings, so those compare float32 arithmetic. Phases:
      values within 0.05); (f)
      generate_demo_gifs.py's tracking of the 40-frame pan scene: ids
      equal to the CPU's, boxes within 1e-4. Only (a)'s launches are
-     counted ((b) is a comparison, (d)'s are another process's).
+     counted ((b) is a comparison, (d)'s are another process's);
+ 27. the examples of motcpp_tpu_torch/examples/ (the JAX package's
+     examples/), in process through main(), at tests/test_examples.py's
+     sizes: (a) each example that steps a tracker on the card with --lap
+     auction_pallas, its auction launches counted from 0 and equal to
+     the count its code gives (EXAMPLE_STEPS); (b) the same example with
+     --cpu (the plain auction): the same lines (ids, counts and
+     emissions exactly; update()'s boxes within 1e-3 px, the estimated
+     pans within 0.05 px); (c) each example at its default --lap on the
+     card and on the CPU: the same lines (but multistream_serving's
+     times; async_serving's counts follow its threads' timing, so only
+     its markers, and that rows were served); (d) the kernel on the
+     solves of one multistream_serving frame against the plain auction
+     (max abs err 0), beside its bound. Only (a)'s launches are counted.
 
 Any failed check exits nonzero before the result is printed. The last
 line is ``{"ok": true, "device": {...}}``; the line before it is the
 card's name and power limit, and the one before that lists the kernels
 with their times and bounds (those of phases 3 and 7) and their
-launches summed over the main paths of phases 3, 7 and 9-26, each
+launches summed over the main paths of phases 3, 7 and 9-27, each
 counted from zero; before those, the script's wall time.
 """
 
@@ -320,6 +334,7 @@ import io
 import json
 import multiprocessing
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -414,11 +429,12 @@ ABLATE_TRACKERS, ABLATE_T, ABLATE_REPEATS = ("bytetrack", "boosttrack"), 30, 2
 SELECT_STREAMS, SELECT_REPEATS = 2048, 20
 # phase 23: the long-horizon script's defaults (ByteTrack) but its frames,
 # OC-SORT's frames, and the leading chunks run again as one run(); cut
-# from 10000 (5000 when phase 25 came, 2500 when phase 26 came), 2000
+# from 10000 (5000 when phase 25 came, 2500 when phase 26 came, 1500, the
+# fewest chunks (c) and its profile need, when phase 27 came), 2000
 # frames and 4 chunks to keep the script near 900 s (on an H100 at 700 W
 # the defaults' run alone takes 100-145 s: ByteTrack at 8-16 ms a
 # frame-batch, host-bound, with chunks up to 53 ms)
-LONG_FRAMES, LONG_OC_FRAMES, LONG_EQUAL_CHUNKS = 2500, 500, 2
+LONG_FRAMES, LONG_OC_FRAMES, LONG_EQUAL_CHUNKS = 1500, 500, 2
 # phase 24: oriented-box SORT (streams, frames, timed runs, streams run
 # on the host as well) and the live sparse-flow leg (frames, timed runs,
 # streams and frames run on the host as well), their frames cut from 60
@@ -463,7 +479,35 @@ GIF_BOX_ATOL, REID_ROW_ATOL, BENCH_SH_TIMEOUT = 1e-4, 0.05, 600
 # auction launches of one tick of each tracker's step at the harness's
 # configurations (PERF.md section 3)
 STEP_LAUNCHES = {"bytetrack": 2, "botsort": 2, "strongsort": 2,
-                 "deepocsort": 2, "boosttrack": 1, "hybridsort": 3}
+                 "deepocsort": 2, "boosttrack": 1, "hybridsort": 3,
+                 "ocsort": 2}
+# phase 27: each example's arguments (tests/test_examples.py's sizes;
+# simple_tracking and multistream_serving take none), and its tracker and
+# steps, from its code: ten and five update() calls; OC-SORT stepped 5
+# times and over a 20-frame clip; 5 frames; 3 chunks of 30 frames; the
+# moved camera's host and the reference host once a frame each over 10
+# frames; 5 ticks; 6 ticks (the service steps every slot each tick, a
+# stream present or not). A step launches the auction kernel
+# STEP_LAUNCHES[tracker] times whether its frame has detections or not
+EXAMPLE_ARGS = {
+    "basic_tracking": [], "simple_tracking": [], "functional_core": [],
+    "multistream_tpu": ["--streams", "8", "--frames", "5"],
+    "multistream_serving": [],
+    "stream_rebalance": ["--frames", "10", "--move-at", "5"],
+    "moving_camera": ["--streams", "2", "--ticks", "5"],
+    "async_serving": ["--streams", "4", "--ticks", "6"],
+}
+EXAMPLE_STEPS = {
+    "basic_tracking": ("bytetrack", 10), "simple_tracking": ("bytetrack", 5),
+    "functional_core": ("ocsort", 5 + 20),
+    "multistream_tpu": ("bytetrack", 5),
+    "multistream_serving": ("bytetrack", 3 * 30),
+    "stream_rebalance": ("bytetrack", 2 * 10),
+    "moving_camera": ("botsort", 5), "async_serving": ("bytetrack", 6),
+}
+# multistream_serving's frame (of 90) whose solves (d) holds to the plain
+# auction and times, and update()'s boxes' tolerance to the CPU's
+EXAMPLE_SOLVE_FRAME, EXAMPLE_BOX_ATOL = 45, 1e-3
 
 
 class SmokeFailure(Exception):
@@ -785,6 +829,9 @@ def run_smoke(baseline=None):
     #      run_benchmark.sh, the golden regenerators, the GIF tool's tracks
     evaluation = evaluation_tools_phase(26, smi)
 
+    # ---- 27. the examples: motcpp_tpu_torch/examples/ through main() ------
+    examples = examples_phase(27, smi)
+
     motion = [p for name, p in paths.items() if not name.endswith("live")]
     live_paths = [p for name, p in paths.items() if name.endswith("live")]
     kernels = [{
@@ -802,12 +849,14 @@ def run_smoke(baseline=None):
                      + longrun["auction_launches"]
                      + obb_sof["auction_launches"]
                      + scores["auction_launches"]
-                     + evaluation["auction_launches"]),
+                     + evaluation["auction_launches"]
+                     + examples["auction_launches"]),
         "max_abs_err": max([max_err, sharded["auction_err"],
                             quantized["auction_err"], tail["auction_err"],
                             tools["auction_err"], longrun["auction_err"],
                             obb_sof["auction_err"], scores["auction_err"],
-                            evaluation["auction_err"]]
+                            evaluation["auction_err"],
+                            examples["auction_err"]]
                            + [p["auction_err"] for p in motion]
                            + [p["auction"]["auction_err"] for p in live_paths
                               if "auction" in p]),
@@ -863,6 +912,8 @@ def run_smoke(baseline=None):
           f"{scores['auction_launches']}")
     print(f"launches on phase 26's synthetic benchmark rows: auction "
           f"{evaluation['auction_launches']}")
+    print(f"launches on phase 27's examples: auction "
+          f"{examples['auction_launches']}")
     return kernels, smi
 
 
@@ -4249,6 +4300,194 @@ def evaluation_tools_phase(phase, card):
     print(f"phase {phase} wall time {time.perf_counter() - t_phase:.1f} s: "
           f"(d)-(f) {def_s:.1f} beside (a), then waited {wait_s:.1f}; "
           f"auction launches (a) {launches}; card: {card}", flush=True)
+    return {"auction_launches": launches, "auction_err": err}
+
+
+@contextlib.contextmanager
+def recorded_example():
+    """While inside, the rows each tracker wrapper's ``update()`` returns
+    and the x translations of each ``sof_jax_batch`` call go into the
+    dict this yields (``rows``, ``pans``), and every line printed goes
+    into its ``out`` (a StringIO)."""
+    import motcpp_tpu_torch
+    from motcpp_tpu_torch.motion import cmc
+
+    seen = {"rows": [], "pans": [], "out": io.StringIO()}
+    create, sof = motcpp_tpu_torch.create_tracker, cmc.sof_jax_batch
+
+    def creating(*args, **kwargs):
+        tracker = create(*args, **kwargs)
+        update = tracker.update
+
+        def recorded(*a, **k):
+            seen["rows"].append(update(*a, **k))
+            return seen["rows"][-1]
+
+        tracker.update = recorded
+        return tracker
+
+    def sof_recorded(prev, cur, *args, **kwargs):
+        warps, ok = sof(prev, cur, *args, **kwargs)
+        seen["pans"].append(warps[:, 0, 2].cpu().numpy())
+        return warps, ok
+
+    motcpp_tpu_torch.create_tracker, cmc.sof_jax_batch = creating, sof_recorded
+    try:
+        with contextlib.redirect_stdout(seen["out"]):
+            yield seen
+    finally:
+        motcpp_tpu_torch.create_tracker, cmc.sof_jax_batch = create, sof
+
+
+def run_example(name, argv):
+    """The example ``name``'s ``main(argv)`` in this process: its lines,
+    its update() rows and pans (:func:`recorded_example`) and its wall
+    time in s, the card synchronised after it."""
+    import importlib
+
+    mod = importlib.import_module(f"motcpp_tpu_torch.examples.{name}")
+    t0 = time.perf_counter()
+    with recorded_example() as seen:
+        rc = mod.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(rc == 0, f"the {name} example exited {rc}: {argv}")
+    return dict(seen, lines=seen["out"].getvalue().splitlines(), s=wall)
+
+
+EXAMPLE_BOXES = re.compile(r"box=\([^)]*\)")
+EXAMPLE_PANS = re.compile(r"estimated pans \[[^\]]*\]")
+EXAMPLE_TIMES = re.compile(r"compile\+run +[\d.]+ ms|run +[\d.]+ ms|"
+                           r"[\d,]+ aggregate FPS|backend=\w+")
+
+
+def same_example_runs(label, got, want):
+    """Two runs of one example print the same lines, but the boxes of
+    update()'s rows (within EXAMPLE_BOX_ATOL; ids, classes and detection
+    indices exact), the estimated pans (within SOF_PAN_ATOL) and
+    multistream_serving's times and device type."""
+    def masked(lines):
+        return [EXAMPLE_TIMES.sub("<time>", EXAMPLE_PANS.sub(
+            "estimated pans", EXAMPLE_BOXES.sub("box=", ln))) for ln in lines]
+
+    check(masked(got["lines"]) == masked(want["lines"]),
+          f"{label}: the lines differ: {got['lines']} against "
+          f"{want['lines']}")
+    check(len(got["rows"]) == len(want["rows"]),
+          f"{label}: {len(got['rows'])} update() calls, want "
+          f"{len(want['rows'])}")
+    for a, b in zip(got["rows"], want["rows"]):
+        check(a.shape == b.shape
+              and np.array_equal(a[:, [4, 6, 7]], b[:, [4, 6, 7]]),
+              f"{label}: update() returned other ids or rows")
+        err = float(np.abs(a[:, :6] - b[:, :6]).max(initial=0))
+        check(err <= EXAMPLE_BOX_ATOL,
+              f"{label}: update()'s boxes {err} px apart")
+    check(len(got["pans"]) == len(want["pans"]) and all(
+        float(np.abs(a - b).max()) <= SOF_PAN_ATOL
+        for a, b in zip(got["pans"], want["pans"])),
+        f"{label}: the estimated pans differ beyond {SOF_PAN_ATOL} px")
+
+
+def async_markers(label, run, streams, ticks):
+    """async_serving's lines: its header, the native mux, one line a
+    tick, rows served, and its verdict."""
+    lines = run["lines"]
+    check(lines[:2] == [f"{streams} streams over 1 device(s)",
+                        "mux backend: native C++"],
+          f"{label}: its header is {lines[:2]}")
+    ticks_seen = [re.fullmatch(r"tick +(\d+): (\d+)/(\d+) streams present, "
+                               r"(\d+) track rows", ln)
+                  for ln in lines[2:2 + ticks]]
+    check(all(ticks_seen) and [int(m.group(1)) for m in ticks_seen]
+          == list(range(ticks)), f"{label}: its tick lines are {lines}")
+    rows = sum(int(m.group(4)) for m in ticks_seen)
+    served = re.match(r"served (\d+) track rows; stats: ",
+                      lines[2 + ticks])
+    check(served and int(served.group(1)) == rows and rows > 0,
+          f"{label}: served {lines[2 + ticks]}, the ticks {rows}")
+    check(lines[3 + ticks:] == ["async serving ok"],
+          f"{label}: its last lines are {lines[3 + ticks:]}")
+    return rows
+
+
+def examples_phase(phase, card):
+    """Phase ``phase``: the eight examples of motcpp_tpu_torch/examples/
+    in process through their main(), at EXAMPLE_ARGS. For each: (a) on
+    the card with --lap auction_pallas, the auction kernel's launches
+    counted from 0 and equal to STEP_LAUNCHES of its tracker times its
+    steps (EXAMPLE_STEPS); (b) with --cpu --lap auction_pallas (the
+    plain auction), the same lines (:func:`same_example_runs`;
+    async_serving: :func:`async_markers`); (c) at its default --lap on
+    the card and with --cpu, the same lines. (d) the kernel on the solves of
+    multistream_serving's frame EXAMPLE_SOLVE_FRAME held to the plain
+    auction (max abs err 0) and timed beside it and its bound. Returns
+    (a)'s launches and (d)'s largest difference."""
+    from motcpp_tpu_torch.ops import auction_cuda
+
+    def same_runs(label, name, card_run, host_run):
+        if name != "async_serving":
+            same_example_runs(label, card_run, host_run)
+            return "the same lines"
+        streams, ticks = map(int, EXAMPLE_ARGS[name][1::2])
+        rows = [async_markers(f"{label} {where}", run, streams, ticks)
+                for where, run in (("card", card_run), ("CPU", host_run))]
+        return (f"the same markers, {rows[0]} rows on the card and {rows[1]} "
+                f"on the CPU (its threads' timing)")
+
+    t_phase = time.perf_counter()
+    launches, per_example, solves = 0, {}, []
+    for name, argv in EXAMPLE_ARGS.items():
+        tracker, steps = EXAMPLE_STEPS[name]
+        per_step = STEP_LAUNCHES[tracker]
+        kernel = argv + ["--lap", "auction_pallas"]
+        # ---- (a) on the card through the kernel -------------------------
+        with contextlib.ExitStack() as stack:
+            if name == "multistream_serving":  # (d)'s frame's solves
+                calls, first = [0], per_step * EXAMPLE_SOLVE_FRAME
+
+                def at_frame():
+                    calls[0] += 1
+                    return first < calls[0] <= first + per_step
+
+                solves = stack.enter_context(captured_solves(at_frame))
+            auction_cuda.LAUNCHES = 0
+            card_run = run_example(name, kernel)
+            n = auction_cuda.LAUNCHES
+        check(n > 0, f"(a) {name}: no auction kernel launch")
+        check(n == per_step * steps, f"(a) {name}: {n} auction kernel "
+              f"launches, want {per_step} a step x {steps} steps")
+        check(name != "multistream_serving" or card_run["lines"][0].endswith(
+            "backend=cuda"), f"(a) {name}: {card_run['lines'][0]}")
+        launches += n
+        per_example[name] = n
+        # ---- (b) on the CPU through the plain auction --------------------
+        host_run = run_example(name, kernel + ["--cpu"])
+        b_line = same_runs(f"(b) {name}", name, card_run, host_run)
+        # ---- (c) at the example's default --lap -------------------------
+        card_def, host_def = (run_example(name, argv),
+                              run_example(name, argv + ["--cpu"]))
+        c_line = same_runs(f"(c) {name}", name, card_def, host_def)
+        print(f"phase {phase} (a) {name} {' '.join(kernel)} on the card: "
+              f"{n} auction launches ({tracker}, {per_step} a step x {steps} "
+              f"steps), {card_run['s']:.2f} s; (b) with --cpu (the plain "
+              f"auction) {b_line}, {host_run['s']:.2f} s; (c) at its default "
+              f"--lap {c_line} (card {card_def['s']:.2f} s, CPU "
+              f"{host_def['s']:.2f} s); last line {card_run['lines'][-1]!r}; "
+              f"card: {card}", flush=True)
+        if name == "multistream_serving":
+            print(f"phase {phase} (a) multistream_serving's lines on the "
+                  f"card: " + " | ".join(card_run["lines"]), flush=True)
+
+    # ---- (d) the kernel on one multistream_serving frame's solves ----
+    shapes = ", ".join(str(tuple(args[0].shape)) for args in solves)
+    err = solves_on_path(
+        phase, f"multistream_serving frame {EXAMPLE_SOLVE_FRAME} ({shapes})",
+        ("stage 1", "stages 2+3"), solves, card)["auction_err"]
+    print(f"phase {phase} wall time {time.perf_counter() - t_phase:.1f} s: "
+          f"auction launches (a) {launches} "
+          + ", ".join(f"{k} {v}" for k, v in per_example.items())
+          + f"; card: {card}", flush=True)
     return {"auction_launches": launches, "auction_err": err}
 
 

@@ -26,6 +26,8 @@ import torch
 from motcpp_tpu_torch.ops import auction, auction_cuda
 from motcpp_tpu_torch.ops.auction import BIG
 
+IMPLS = ("jv", "auction", "auction_pallas")  # solve_lap_masked's impl
+
 
 def _augmented_cost(cost, row_mask, col_mask, thresh):
     """(P, R, C+R): invalid or NaN real pairs at BIG, valid row i's dummy

@@ -41,11 +41,11 @@ import numpy as np
 import torch
 
 from motcpp_tpu_torch.device import resolve_device
+from motcpp_tpu_torch.ops.lap import IMPLS
 
 # where --write puts the plain scoreboard
 TABLE = (Path(__file__).resolve().parent.parent / "_build"
          / "accuracy_ablation_torch.json")
-LAPS = ("jv", "auction", "auction_pallas")
 
 # eval-tool-parity configs (reference: tools/motcpp_eval.cpp:96-316);
 # embeddings are fed to the same trackers the reference feeds FastReID
@@ -221,7 +221,7 @@ def main(argv=None):
                     help=f"write {TABLE.name} under motcpp_tpu_torch/_build")
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU (default: the CUDA device)")
-    ap.add_argument("--lap", choices=LAPS, default=None,
+    ap.add_argument("--lap", choices=IMPLS, default=None,
                     help="the trackers' assignment solver (default: each "
                     "wrapper's, the exact JV)")
     ap.add_argument("--emb-cadence", type=int, default=1,

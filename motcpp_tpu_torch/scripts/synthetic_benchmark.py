@@ -27,6 +27,7 @@ import time
 import numpy as np
 
 from motcpp_tpu_torch.device import resolve_device
+from motcpp_tpu_torch.ops.lap import IMPLS
 
 TRACKERS = {
     "sort": dict(max_age=3, min_hits=1),
@@ -40,7 +41,6 @@ TRACKERS = {
     "ucmctrack": dict(),
 }
 EMB_TRACKERS = {"deepocsort", "strongsort", "botsort", "boosttrack", "hybridsort"}
-LAPS = ("jv", "auction", "auction_pallas")
 HEADER = (f"{'tracker':12s}{'HOTA':>8s}{'MOTA':>8s}{'IDF1':>8s}{'DetA':>8s}"
           f"{'AssA':>8s}{'IDSW':>6s}")
 
@@ -147,7 +147,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=300)
     ap.add_argument("--objects", type=int, default=24)
-    ap.add_argument("--lap", default="jv", choices=LAPS)
+    ap.add_argument("--lap", default="jv", choices=IMPLS)
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU (default: the CUDA device)")
     ap.add_argument("--trackers", nargs="*", default=sorted(TRACKERS))

@@ -29,9 +29,9 @@ from pathlib import Path
 import numpy as np
 
 from motcpp_tpu_torch.device import resolve_device
+from motcpp_tpu_torch.ops.lap import IMPLS
 
 ROOT = Path(__file__).resolve().parent.parent.parent
-LAPS = ("jv", "auction", "auction_pallas")
 
 
 def evaluate_params(tracker_name, params, mot_root, frames, work_dir,
@@ -86,7 +86,7 @@ def main(argv=None):
                     help="frames per sequence (the bundled GT spans 8)")
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU (default: the CUDA device)")
-    ap.add_argument("--lap", default="jv", choices=LAPS,
+    ap.add_argument("--lap", default="jv", choices=IMPLS,
                     help="the trackers' assignment solver")
     args = ap.parse_args(argv)
     device = "cpu" if args.cpu else "cuda"

@@ -1399,3 +1399,19 @@ def test_scoreboard_row_on_the_card_equals_its_deterministic_run(
     assert all(a.shape == b.shape and np.array_equal(a.view(np.int32),
                                                      b.view(np.int32))
                for a, b in zip(o1, o2))
+
+
+def test_multistream_example_on_the_card_launches_the_kernel(cuda, capsys):
+    """The multistream_tpu example at 8 streams and 5 frames through the
+    auction kernel: two launches a frame (ByteTrack's stage 1 and stages
+    2+3), and the lines of its --cpu run (the plain auction)."""
+    from motcpp_tpu_torch.examples import multistream_tpu
+
+    argv = ["--streams", "8", "--frames", "5", "--lap", "auction_pallas"]
+    before = auction_cuda.LAUNCHES
+    assert multistream_tpu.main(argv) == 0
+    assert auction_cuda.LAUNCHES - before == 2 * 5
+    card = capsys.readouterr().out
+    assert multistream_tpu.main(argv + ["--cpu"]) == 0
+    assert card == capsys.readouterr().out
+    assert "160 track emissions" in card

@@ -404,3 +404,26 @@ def test_evaluation_tools_default_to_cuda_and_raise_without_it(
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert not list(tmp_path.iterdir())
+
+
+EXAMPLES = ("basic_tracking", "simple_tracking", "functional_core",
+            "multistream_tpu", "multistream_serving", "stream_rebalance",
+            "moving_camera", "async_serving")
+
+
+def test_examples_are_in_scope_and_raise_without_cuda(no_cuda, capsys):
+    """The eight examples (the JAX package's examples/ of the same names)
+    are among the files held to the import rules above, and each
+    example's main() without --cpu raises where there is no card, before
+    it prints anything."""
+    import importlib
+
+    examples = {p.stem for p in PORT_FILES if p.parent.name == "examples"}
+    assert set(EXAMPLES) <= examples
+    for name in EXAMPLES:
+        mod = importlib.import_module(f"motcpp_tpu_torch.examples.{name}")
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            mod.main([])
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            mod.main(["--lap", "auction_pallas"])
+    assert capsys.readouterr().out == ""

@@ -20,7 +20,8 @@ leg, the ablation accuracy scoreboard with its cadence and
 priority-budget probes, and the accuracy and evaluation tools (the
 synthetic benchmark, run_benchmark.sh, the golden regenerators and the
 demo-GIF tool's tracking), and the examples (motcpp_tpu_torch/examples/),
-and checks what they emit. The trackers are
+and the scoreboard (motcpp_tpu_torch/bench.py), and checks what they
+emit. The trackers are
 built at the scoreboard's configurations by
 ``motcpp_tpu_torch/scripts/tracker_fns.py``.
 
@@ -318,12 +319,29 @@ timings, so those compare float32 arithmetic. Phases:
      its markers, and that rows were served); (d) the kernel on the
      solves of one multistream_serving frame against the plain auction
      (max abs err 0), beside its bound. Only (a)'s launches are counted.
+ 28. the scoreboard (motcpp_tpu_torch/bench.py, the JAX package's
+     bench.py; its timing carries the tracker state from the warm-up
+     through BENCH_REPEATS timed runs): (a) ``python -m
+     motcpp_tpu_torch.bench --quick --repeats 1`` in a fresh process,
+     beside (b)-(d) in this one: exit 0, nine rows with ByteTrack last,
+     each row's auction launches as its tracker's step gives them, and no
+     root BENCH_*.json written or added; (b) the six capacity rows
+     (K=128, N=64 and 128, S=1024) in process through the single-tracker
+     flags, their launches counted, and the kernel on the solves of one
+     frame of the K=128, N=128 ByteTrack row against the plain auction,
+     beside its bound; (c) the BoT-SORT live leg at cadence 8 with
+     --fused (6 OSBlock and 2 auction launches a frame): its emissions
+     equal to the same leg's with every block through osblock_reference,
+     and the OSBlock kernel on one frame's blocks against its plain
+     version; (d) ByteTrack's row at 256 streams through the kernel and
+     through --lap auction: identical masks, ids and boxes. The launches
+     of (a)-(c)'s rows are counted, (a)'s from its rows' ``#`` lines.
 
 Any failed check exits nonzero before the result is printed. The last
 line is ``{"ok": true, "device": {...}}``; the line before it is the
 card's name and power limit, and the one before that lists the kernels
 with their times and bounds (those of phases 3 and 7) and their
-launches summed over the main paths of phases 3, 7 and 9-27, each
+launches summed over the main paths of phases 3, 7 and 9-28, each
 counted from zero; before those, the script's wall time.
 """
 
@@ -352,16 +370,24 @@ import torch  # noqa: E402
 # the H100's published rates (HBM, float32 and bf16), the timing and the
 # bounds are shared with the measurement tools in motcpp_tpu_torch/scripts
 from motcpp_tpu_torch.utils.profiling import (  # noqa: E402
-    FP32_OPS_PER_S,
     HBM_BYTES_PER_S,
-    bound_ms,
+    auction_bound_ms,
     call_ms,
     crop_cosine,
     device_split,
     exact_float32,
+    full_tile_bound_ms,
     osblock_bound_ms,
     ranged,
     same_bits,
+)
+# the timing protocol and the live-ReID crops are shared with the
+# scoreboard (motcpp_tpu_torch/bench.py); a failed check of either raises
+# the same exception
+from motcpp_tpu_torch.utils.benchrun import (  # noqa: E402
+    CheckFailure,
+    rolled_crops,
+    timed_runs,
 )
 
 # REPEATS timed runs a path (5 until the script outgrew 900 s)
@@ -417,8 +443,8 @@ TUNE_FRAMES = 8  # scripts/tune.py's default: the bundled GT spans 8 frames
 FAILOVER_TICKS = 20  # the flagship failover's ticks, cut in the middle
 # phase 21: timed ticks of each harness run and sweep point (the JAX
 # package's scripts time 200 and 300; 100 until the script outgrew 900
-# s), and (b)'s ticks held against the native mux
-SLO_TICKS, RING_EQUAL_TICKS = 60, 4
+# s, 60 until phase 28 came), and (b)'s ticks held against the native mux
+SLO_TICKS, RING_EQUAL_TICKS = 40, 4
 # phase 22: profile_osnet's crops and model (phase 7's widths), its timed
 # calls a piece; profile_stages' calls a stage; ablate_cost's trackers,
 # streams and frames and its timed rollouts; microbench_select's streams
@@ -480,7 +506,7 @@ GIF_BOX_ATOL, REID_ROW_ATOL, BENCH_SH_TIMEOUT = 1e-4, 0.05, 600
 # configurations (PERF.md section 3)
 STEP_LAUNCHES = {"bytetrack": 2, "botsort": 2, "strongsort": 2,
                  "deepocsort": 2, "boosttrack": 1, "hybridsort": 3,
-                 "ocsort": 2}
+                 "ocsort": 2, "sort": 1, "ucmctrack": 2}
 # phase 27: each example's arguments (tests/test_examples.py's sizes;
 # simple_tracking and multistream_serving take none), and its tracker and
 # steps, from its code: ten and five update() calls; OC-SORT stepped 5
@@ -508,15 +534,14 @@ EXAMPLE_STEPS = {
 # multistream_serving's frame (of 90) whose solves (d) holds to the plain
 # auction and times, and update()'s boxes' tolerance to the CPU's
 EXAMPLE_SOLVE_FRAME, EXAMPLE_BOX_ATOL = 45, 1e-3
-
-
-class SmokeFailure(Exception):
-    pass
+# phase 28: the scoreboard's timed runs after its warm-up in (a)-(d) (its
+# default is 5), and (a)'s time limit
+BENCH_REPEATS, BENCH_QUICK_TIMEOUT = 1, 600
 
 
 def check(ok, msg):
     if not ok:
-        raise SmokeFailure(msg)
+        raise CheckFailure(msg)
 
 
 def auction_inputs(rng, P, k, n):
@@ -536,32 +561,6 @@ def auction_inputs(rng, P, k, n):
     cm[:q] = rng.random((q, n)) < 0.6
     th[:q] = 0.9
     return [torch.from_numpy(a).cuda() for a in (cost, rm, cm, th)]
-
-
-def auction_bound_ms(cost, rm, cm, th):
-    """Least time for one solve: what the function needs read once and
-    written once at the HBM rate, or one pass of (v = b - p, max) over
-    every valid pair at the float32 rate, whichever is longer. The bytes
-    are the masks, the thresholds, the outputs, and of the costs only
-    the 32-byte sectors that hold a valid pair (no other cost changes
-    the result)."""
-    P, k, n = cost.shape
-    valid = (rm[:, :, None] & cm[:, None, :]).reshape(-1)
-    pad = -valid.numel() % 8
-    sectors = int(torch.nn.functional.pad(valid, (0, pad)).view(-1, 8)
-                  .any(1).sum())
-    nbytes = (sectors * 32 + rm.numel() + cm.numel() + th.numel() * 4
-              + P * (k + n) * 4)
-    return bound_ms(2 * int(valid.sum()), nbytes, FP32_OPS_PER_S)
-
-
-def full_tile_bound_ms(cost, rm, cm, th):
-    """The bytes bound with every cost tile read whole, as it was stated
-    before the kernel skipped what the function does not need."""
-    P, k, n = cost.shape
-    nbytes = (cost.numel() * 4 + rm.numel() + cm.numel() + th.numel() * 4
-              + P * (k + n) * 4)
-    return nbytes / HBM_BYTES_PER_S * 1e3
 
 
 def baseline_solver(source):
@@ -832,6 +831,9 @@ def run_smoke(baseline=None):
     # ---- 27. the examples: motcpp_tpu_torch/examples/ through main() ------
     examples = examples_phase(27, smi)
 
+    # ---- 28. the scoreboard: motcpp_tpu_torch/bench.py -------------------
+    scored = bench_phase(28, smi)
+
     motion = [p for name, p in paths.items() if not name.endswith("live")]
     live_paths = [p for name, p in paths.items() if name.endswith("live")]
     kernels = [{
@@ -850,13 +852,14 @@ def run_smoke(baseline=None):
                      + obb_sof["auction_launches"]
                      + scores["auction_launches"]
                      + evaluation["auction_launches"]
-                     + examples["auction_launches"]),
+                     + examples["auction_launches"]
+                     + scored["auction_launches"]),
         "max_abs_err": max([max_err, sharded["auction_err"],
                             quantized["auction_err"], tail["auction_err"],
                             tools["auction_err"], longrun["auction_err"],
                             obb_sof["auction_err"], scores["auction_err"],
                             evaluation["auction_err"],
-                            examples["auction_err"]]
+                            examples["auction_err"], scored["auction_err"]]
                            + [p["auction_err"] for p in motion]
                            + [p["auction"]["auction_err"] for p in live_paths
                               if "auction" in p]),
@@ -875,8 +878,10 @@ def run_smoke(baseline=None):
                      + utils["osblock_launches"]
                      + sharded["osblock_launches"]
                      + quantized["osblock_launches"]
-                     + tools["osblock_launches"]),
-        "max_abs_err": max([sharded["osblock_err"], tools["osblock_err"]]
+                     + tools["osblock_launches"]
+                     + scored["osblock_launches"]),
+        "max_abs_err": max([sharded["osblock_err"], tools["osblock_err"],
+                            scored["osblock_err"]]
                            + [p["osblock"]["max_err"] for p in live_paths]),
         "ms": live["osblock"]["ms"],
         "plain_ms": live["osblock"]["plain_ms"],
@@ -914,6 +919,9 @@ def run_smoke(baseline=None):
           f"{evaluation['auction_launches']}")
     print(f"launches on phase 27's examples: auction "
           f"{examples['auction_launches']}")
+    print(f"launches on phase 28's scoreboard rows: auction "
+          f"{scored['auction_launches']}, OSBlock "
+          f"{scored['osblock_launches']}")
     return kernels, smi
 
 
@@ -1114,29 +1122,6 @@ def x1_block_inputs(gen):
     return {name: torch.relu(torch.randn((BLOCK_CHECK_B, *hw), generator=gen,
                                          device="cuda"))
             for name, hw in shapes.items()}
-
-
-def timed_runs(runner, dets, masks, counters, want, label, repeats=REPEATS,
-               **legs):
-    """One warm-up and ``repeats`` timed run()s of ``runner`` from a reset
-    state over dets, masks and the run() keywords ``legs``; checks each
-    run's kernel launches against ``want`` ({module: count}). Returns the
-    median seconds of a run, the run times and the last outputs."""
-    times = []
-    for rep in range(1 + repeats):
-        runner.reset()
-        before = {m: m.LAUNCHES for m in counters}
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        outs, out_masks = runner.run(dets, masks, **legs)
-        torch.cuda.synchronize()
-        if rep:
-            times.append(time.perf_counter() - t0)
-        for m in counters:
-            got = m.LAUNCHES - before[m]
-            check(got == want[m], f"{label} run {rep}: {got} {m.__name__} "
-                  f"launches, want {want[m]}")
-    return float(np.median(times)), times, outs, out_masks
 
 
 def profile_frame(runner, dets, masks, span, legs):
@@ -1406,7 +1391,7 @@ def live_reid_phases(osblock_build, card):
     crops0 = torch.randint(0, 256, (LIVE_S, LIVE_N, *CROP_HW, 3),
                            dtype=torch.uint8, device="cuda", generator=gen)
     # frames differ by a roll along the stream axis, as bench_livereid
-    crops_all = torch.stack([torch.roll(crops0, t, 0) for t in range(EQUAL_T)])
+    crops_all = rolled_crops(crops0, EQUAL_T)
     dets, masks, crops = (dets_all[:LIVE_T], masks_all[:LIVE_T],
                           crops_all[:LIVE_T])
     counters = (osblock_cuda, auction_cuda)
@@ -1418,8 +1403,8 @@ def live_reid_phases(osblock_build, card):
         if cadence is None:
             osblock_cuda.LAUNCHES = 0
             auction_cuda.LAUNCHES = 0
-        run_s, times, outs, out_masks = timed_runs(
-            runner, dets, masks, counters, want, label, embs=crops)
+        run_s, times, _, (outs, out_masks) = timed_runs(
+            runner, dets, masks, counters, want, label, REPEATS, embs=crops)
         if cadence is None:
             launches = {m: m.LAUNCHES for m in counters}
         emitted = check_live_outputs(label, last[0], outs, out_masks)
@@ -1533,9 +1518,9 @@ def live_tracker_phases(phase, name, make, stages, model, scene, card,
 
         for m in counters:
             m.LAUNCHES = 0
-        run_s, times, outs, out_masks = timed_runs(
+        run_s, times, _, (outs, out_masks) = timed_runs(
             runner_for(embed_fn), dets, masks, counters, want,
-            f"{name} {label}", embs=crops)
+            f"{name} {label}", REPEATS, embs=crops)
         for m in counters:
             launches[m] += m.LAUNCHES
         emitted = check_live_outputs(f"{name} {label}", last[0], outs,
@@ -2499,7 +2484,7 @@ def sharded_phase(phase, card, byte, live, hybrid, served_live, scene):
     runner = MultiStreamRunner(init, step, S, devices=devices)
     for m in counters:
         m.LAUNCHES = 0
-    run_s, times, outs, out_masks = timed_runs(
+    run_s, times, _, (outs, out_masks) = timed_runs(
         runner, dets, masks, counters,
         {auction_cuda: 2 * SHARDS * T, osblock_cuda: 0}, "sharded ByteTrack",
         SHARDED_REPEATS)
@@ -2551,7 +2536,7 @@ def sharded_phase(phase, card, byte, live, hybrid, served_live, scene):
                                embed_fn=embed, emb_cadence=CADENCE)
     for m in counters:
         m.LAUNCHES = 0
-    live_s, times, *got = timed_runs(
+    live_s, times, _, got = timed_runs(
         runner, *legs[:2], counters, {osblock_cuda: 6 * SHARDS * LIVE_T,
                                       auction_cuda: 2 * SHARDS * LIVE_T},
         "sharded BoT-SORT live", SHARDED_REPEATS, embs=legs[2])
@@ -2916,8 +2901,9 @@ def int8_phase(phase, card, live, served_live, scene):
         m.LAUNCHES = 0
     runner = MultiStreamRunner(init, step, LIVE_S, device="cuda",
                                embed_fn=embed_fn, emb_cadence=CADENCE)
-    run_s, times, outs, out_masks = timed_runs(
-        runner, dets, masks, counters, want, "BoT-SORT int8 live", embs=crops)
+    run_s, times, _, (outs, out_masks) = timed_runs(
+        runner, dets, masks, counters, want, "BoT-SORT int8 live", REPEATS,
+        embs=crops)
     launches = {m: m.LAUNCHES for m in counters}
     emitted = check_live_outputs("BoT-SORT int8 live", last[0], outs,
                                  out_masks)
@@ -3512,7 +3498,7 @@ def obb_sof_phase(phase, card):
         """timed_runs with the launches of all its runs and a check that
         the last run emits, each emitted row finite."""
         auction_cuda.LAUNCHES = 0
-        run_s, times, outs, out_masks = timed_runs(
+        run_s, times, _, (outs, out_masks) = timed_runs(
             runner, dets, masks, (auction_cuda,),
             {auction_cuda: per_frame * dets.shape[0]}, label, repeats, **legs)
         emitted = int(out_masks.sum())
@@ -4057,7 +4043,7 @@ def run_group(argv, env, timeout):
     except subprocess.TimeoutExpired:
         os.killpg(proc.pid, signal.SIGKILL)
         proc.communicate()
-        raise SmokeFailure(f"{argv[:2]} did not end within {timeout} s")
+        raise CheckFailure(f"{argv[:2]} did not end within {timeout} s")
     return proc.returncode, out, err
 
 
@@ -4491,6 +4477,198 @@ def examples_phase(phase, card):
     return {"auction_launches": launches, "auction_err": err}
 
 
+BENCH_ROW_LINE = re.compile(r"^# \[(\w+)\] .*launches auction (\d+), "
+                            r"OSBlock (\d+)$")
+
+
+def bench_phase(phase, card):
+    """Phase ``phase``: the scoreboard (``motcpp_tpu_torch/bench.py``) on
+    the card. (a) ``python -m motcpp_tpu_torch.bench --quick --repeats
+    1`` in a fresh process, after (b)-(d) so that neither times under the
+    other's load: exit 0, the nine rows with ByteTrack last, each row's
+    auction launches (its ``#`` line's) STEP_LAUNCHES of its tracker a
+    frame of each run, its rows in ``_build/bench_quick_torch.json``, and
+    no root ``BENCH_*.json`` written or added; (b) the six capacity rows through the
+    single-tracker flags in process (``--streams 1024 --max-tracks 128
+    --max-dets 64|128 --objects 40|64 --metric-suffix ...``), each
+    launching the kernel STEP_LAUNCHES a frame of each run, and the
+    kernel on the solves of the K=128, N=128 ByteTrack row's middle frame
+    against the plain auction (max abs err 0) beside its bound; (c) the
+    BoT-SORT live leg at cadence 8 with ``--fused`` (6 OSBlock and 2
+    auction launches a frame), its first rollout equal to the same runner
+    on the same inputs with every block through ``osblock_reference``,
+    and the OSBlock kernel on the blocks of the leg's third frame against
+    its plain version; (d) ByteTrack's row through the kernel against
+    ``--lap auction`` at EQUAL_STREAMS streams: identical masks, ids and
+    boxes in the warm-up and the timed run. The launches of (a)-(c)'s
+    rows count; the comparisons' do not."""
+    from motcpp_tpu_torch import bench
+    from motcpp_tpu_torch.appearance import osblock, osblock_cuda
+    from motcpp_tpu_torch.ops import auction_cuda
+    from motcpp_tpu_torch.utils.profiling import uncounted
+
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    jsons = {p.name: p.read_bytes() for p in root.glob("BENCH_*.json")}
+    quick = bench.BUILD / bench.QUICK_JSON
+    quick.unlink(missing_ok=True)
+    reps = ["--repeats", str(BENCH_REPEATS)]
+    launches = {"auction": 0, "OSBlock": 0}
+
+    def row_of(label, row, report, want):
+        """Checks a row's metric, value and launches, counts them."""
+        runs = 1 + BENCH_REPEATS
+        check(row["metric"] == f"torch_{label}_streams_at_30fps_per_chip"
+              and row["value"] > 0, f"(b)-(c) bench row {row}")
+        for k, n in report["launches"].items():
+            check(n == want[k] * runs, f"{label}: {n} {k} kernel "
+                  f"launches over {runs} runs, want {want[k] * runs}")
+            launches[k] += n
+        emitted = int(report["last"][1].sum())
+        check(emitted > 0, f"{label}: no emission in the last run")
+        times = report["times"]
+        return (f"{row['value']} streams at 30 FPS, "
+                f"{np.median(times) * 1e3:.3f} ms a run (runs "
+                f"{[round(t * 1e3, 3) for t in times]}), {emitted} "
+                f"emissions in the last run, launches "
+                f"{report['launches']}")
+
+    # (b) the six capacity rows
+    solve_stats = None
+    for suffix, ov in bench.CAPACITY_ROWS:
+        for trk in bench.CAPACITY_TRACKERS:
+            args = bench.parser().parse_args(
+                ["--tracker", trk, "--streams", str(ov["streams"]),
+                 "--max-tracks", str(ov["max_tracks"]), "--max-dets",
+                 str(ov["max_dets"]), "--objects", str(ov["objects"]),
+                 "--metric-suffix", suffix] + reps)
+            report = {}
+            row = bench.bench_one(trk, args, None, suffix, report=report)
+            line = row_of(f"{trk}{suffix}", row, report, {
+                "auction": STEP_LAUNCHES[trk] * args.frames,
+                "OSBlock": 0})
+            print(f"phase {phase} (b) {trk}{suffix} S={ov['streams']} "
+                  f"K={ov['max_tracks']} N={ov['max_dets']} T="
+                  f"{args.frames}: {line}; card: {card}", flush=True)
+            if (trk, suffix) == ("bytetrack", "_K128_N128"):
+                runner = report["runner"]
+                dets, masks, _ = report["device_inputs"]
+                half = args.frames // 2
+                runner.reset()
+                runner.run(dets[:half], masks[:half])
+                solve_stats = auction_on_path(
+                    phase, f"bench {trk}{suffix}",
+                    ("stage 1", "stages 2+3"),
+                    lambda: runner.run(dets[half:half + 1],
+                                       masks[half:half + 1]), card)
+            del report
+
+    # (c) the live leg through the OSBlock kernel, against the same
+    # runner with every block through its plain version
+    args = bench.parser().parse_args(
+        ["--tracker", "botsort", "--livereid", "--emb-cadence",
+         str(CADENCE), "--fused"] + reps)
+    report = {}
+    row = bench.bench_livereid("botsort", args, report=report)
+    line = row_of(f"botsort_livereid_fused_ec{CADENCE}", row, report, {
+        "auction": 2 * LIVE_T, "OSBlock": 6 * LIVE_T})
+    print(f"phase {phase} (c) botsort_livereid_fused_ec{CADENCE}: "
+          f"{line}; card: {card}", flush=True)
+    runner = report["runner"]
+    dets, masks, legs = report["device_inputs"]
+    fused = osblock.osblock_fused
+    with uncounted():
+        osblock.osblock_fused = lambda w, x: osblock.osblock_reference(
+            w.folded, w.name, x, w.cout)
+        try:
+            runner.reset()
+            plain = runner.run(dets, masks, **legs)
+        finally:
+            osblock.osblock_fused = fused
+        emitted, _ = same_outputs(
+            f"(c) the bench's live leg through the OSBlock kernel and "
+            f"through osblock_reference", report["first"], plain)
+        runner.reset()
+        block_stats = osblock_on_path(phase, runner, dets, masks,
+                                      legs["embs"])
+    print(f"phase {phase} (c) live leg, OSBlock kernel = "
+          f"osblock_reference in bf16: masks, ids and boxes identical "
+          f"({emitted} emissions); card: {card}", flush=True)
+    del report, runner, legs
+
+    # (d) the flagship's row through the kernel against the plain
+    # auction
+    firsts = {}
+    with uncounted():
+        for lap in ("auction_pallas", "auction"):
+            report = {}
+            bench.bench_one("bytetrack", bench.parser().parse_args(
+                ["--tracker", "bytetrack", "--streams",
+                 str(EQUAL_STREAMS), "--lap", lap] + reps),
+                report=report)
+            firsts[lap] = (report["first"], report["last"])
+    for i, run in enumerate(("warm-up", "timed run")):
+        emitted, _ = same_outputs(
+            f"(d) bench ByteTrack {run}, kernel against plain auction",
+            firsts["auction_pallas"][i], firsts["auction"][i])
+    print(f"phase {phase} (d) bench ByteTrack row on {EQUAL_STREAMS} "
+          f"streams, kernel path = plain path: identical ({emitted} "
+          f"emissions in the timed run)", flush=True)
+
+    # (a) the quick scoreboard in its own process, after (b)-(d): neither
+    # side times under the other's load on the card and the host
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "motcpp_tpu_torch.bench", "--quick"] + reps,
+        cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        out, err = proc.communicate(timeout=BENCH_QUICK_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        raise CheckFailure(f"(a) the quick scoreboard ran past "
+                           f"{BENCH_QUICK_TIMEOUT} s") from None
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    check(proc.returncode == 0, f"(a) the quick scoreboard exited "
+          f"{proc.returncode}: {err[-2000:]}")
+    rows = [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
+    check([r["metric"] for r in rows] == [
+        f"torch_{t}_streams_at_30fps_per_chip" for t in bench.ALL_TRACKERS]
+        and all(r["value"] > 0 for r in rows),
+        f"(a) the quick scoreboard's rows: {rows}")
+    check(json.loads(quick.read_text())["rows"] == rows,
+          f"(a) {quick} does not hold the printed rows")
+    check({p.name: p.read_bytes() for p in root.glob("BENCH_*.json")}
+          == jsons, "(a) the scoreboard wrote a root BENCH_*.json")
+    counted = {}
+    for ln in err.splitlines():
+        m = BENCH_ROW_LINE.match(ln)
+        if m:
+            counted[m[1]] = (int(m[2]), int(m[3]))
+    for trk in bench.ALL_TRACKERS:
+        want = (STEP_LAUNCHES[trk] * bench.parser().parse_args([]).frames
+                * (1 + BENCH_REPEATS))
+        check(counted.get(trk) == (want, 0), f"(a) {trk}: launches "
+              f"{counted.get(trk)}, want ({want}, 0)")
+    quick_launches = sum(a for a, _ in counted.values())
+    launches["auction"] += quick_launches
+    for ln in err.splitlines():
+        if ln.startswith("# ["):
+            print(f"phase {phase} (a) {ln[2:]}")
+    print(f"phase {phase} (a) python -m motcpp_tpu_torch.bench --quick "
+          f"--repeats {BENCH_REPEATS}: exit 0, "
+          + ", ".join(f"{r['metric']} {r['value']}" for r in rows)
+          + f"; {quick_launches} auction launches; no root BENCH_*.json "
+          f"written", flush=True)
+    print(f"phase {phase} wall time {time.perf_counter() - t_phase:.1f} s; "
+          f"launches: auction {launches['auction']} ((a) {quick_launches}), "
+          f"OSBlock {launches['OSBlock']}; card: {card}", flush=True)
+    return {"auction_launches": launches["auction"],
+            "osblock_launches": launches["OSBlock"],
+            "auction_err": solve_stats["auction_err"],
+            "osblock_err": block_stats["max_err"]}
+
+
 def main(argv=None):
     import argparse
 
@@ -4508,7 +4686,7 @@ def main(argv=None):
     t0 = time.perf_counter()
     try:
         kernels, smi = run_smoke(args.baseline)
-    except SmokeFailure as exc:
+    except CheckFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s of wall time")

@@ -13,7 +13,8 @@ CUDA events, or the host clock for a call on the CPU),
 :func:`exact_float32` (TF32 off), :func:`crop_cosine`, the
 H100's published rates
 and :func:`bound_ms`, the least time of a piece of work at those rates
-(:func:`osblock_bound_ms` for one OSBlock).
+(:func:`osblock_bound_ms` for one OSBlock, :func:`auction_bound_ms` for
+one auction solve).
 """
 
 from __future__ import annotations
@@ -287,3 +288,30 @@ def osblock_bound_ms(w, B, H, W, dtype):
     (bf16 tensor cores, or float32 CUDA cores), whichever is longer."""
     peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S
     return bound_ms(*osblock_cost(w, B, H, W, dtype), peak)
+
+
+def auction_bound_ms(cost, rm, cm, th):
+    """Least time for one auction solve: what the function needs read
+    once and written once at the HBM rate, or one pass of (v = b - p,
+    max) over every valid pair at the float32 rate, whichever is longer.
+    The bytes are the masks, the thresholds, the outputs, and of the
+    costs only the 32-byte sectors that hold a valid pair (no other cost
+    changes the result). Returns (ms, "bytes" or "operations")."""
+    P, k, n = cost.shape
+    valid = (rm[:, :, None] & cm[:, None, :]).reshape(-1)
+    pad = -valid.numel() % 8
+    sectors = int(torch.nn.functional.pad(valid, (0, pad)).view(-1, 8)
+                  .any(1).sum())
+    nbytes = (sectors * 32 + rm.numel() + cm.numel() + th.numel() * 4
+              + P * (k + n) * 4)
+    return bound_ms(2 * int(valid.sum()), nbytes, FP32_OPS_PER_S)
+
+
+def full_tile_bound_ms(cost, rm, cm, th):
+    """The bytes bound of one auction solve with every cost tile read
+    whole, as it was stated before the kernel skipped what the function
+    does not need."""
+    P, k, n = cost.shape
+    nbytes = (cost.numel() * 4 + rm.numel() + cm.numel() + th.numel() * 4
+              + P * (k + n) * 4)
+    return nbytes / HBM_BYTES_PER_S * 1e3
